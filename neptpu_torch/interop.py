@@ -1,0 +1,110 @@
+"""Carry state computed by the JAX package across to the port (no JAX here).
+
+A JAX bank or solver is a pytree: ``obj.tree_flatten()`` gives its leaves
+(arrays, or nested pytree objects) and its static aux data.  Turned into
+numpy, that is a *spec* triple ``(kind, leaves, aux)``: ``kind`` the class
+name, ``leaves`` a list whose entries are numpy arrays, ``None``, tuples of
+those, or nested spec triples.  The functions below rebuild the port's
+objects from such specs so that both packages compute from identical
+operands and identical state.  (Pivots: the JAX package stores 0-based LU
+pivots, ``torch.linalg`` 1-based ones.)
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .ops.dia import DiaTermBank
+from .ops.mixed import MixedTermBank
+from .ops.partitioned import (BlockTridiagSolver, InterleavedSMW,
+                              PartitionedBandedSolver)
+from .ops.sparse import DenseTermBank, SparseTermBank
+from .solvers.iar_real import DenseBlockLU
+
+__all__ = ["bank_from_arrays", "shift_solver_from_arrays", "carry_from_arrays"]
+
+
+def _t(x, device, dtype=None):
+    if x is None:
+        return None
+    return torch.as_tensor(np.array(x), dtype=dtype, device=device)
+
+
+def _pivots(piv, device):
+    """0-based pivots -> torch's 1-based int32 pivots."""
+    return torch.as_tensor(np.asarray(piv).astype(np.int32) + 1,
+                           device=device)
+
+
+def bank_from_arrays(spec, device=None):
+    """A term bank from the spec of a JAX ``DiaTermBank``,
+    ``SparseTermBank``, ``DenseTermBank`` or ``MixedTermBank``."""
+    kind, leaves, aux = spec
+    if kind == "DiaTermBank":
+        data, fro = leaves
+        offsets, shape = aux
+        return DiaTermBank(_t(data, device), offsets, shape,
+                           fro_norms=_t(fro, device))
+    if kind == "SparseTermBank":
+        data, indices, row_ids, indptr, fro = leaves
+        return SparseTermBank(_t(data, device),
+                              _t(indices, device, torch.int64),
+                              _t(row_ids, device, torch.int64),
+                              _t(indptr, device, torch.int64), aux[0],
+                              fro_norms=_t(fro, device))
+    if kind == "DenseTermBank":
+        A, fro = leaves
+        return DenseTermBank(_t(A, device), fro_norms=_t(fro, device))
+    if kind == "MixedTermBank":
+        inner, Lr, Ur, Li, Ui, fro = leaves
+        main_idx, tidx_r, tidx_i, shape, nterms = aux
+        return MixedTermBank(bank_from_arrays(inner, device), _t(Lr, device),
+                             _t(Ur, device), _t(Li, device), _t(Ui, device),
+                             main_idx, tidx_r, tidx_i, shape, nterms,
+                             fro_norms=_t(fro, "cpu"))
+    raise ValueError(f"unknown bank kind {kind!r}")
+
+
+def shift_solver_from_arrays(spec, device=None):
+    """A shifted solver from the spec of a JAX ``InterleavedSMW``,
+    ``PartitionedBandedSolver``, ``BlockTridiagSolver`` or ``DenseBlockLU``."""
+    kind, leaves, aux = spec
+    if kind == "InterleavedSMW":
+        base, X, Uh, Lh, K_fac, K_piv = leaves
+        mode, refine = aux
+        base = shift_solver_from_arrays(base, device)
+        if K_piv is not None:
+            K_piv = (_pivots(K_piv, device) if mode == "lu"
+                     else _t(K_piv, device, torch.int32))
+        return InterleavedSMW.from_factors(
+            base, _t(X, device), _t(Uh, device), _t(Lh, device),
+            _t(K_fac, device), K_piv, mode, refine)
+    if kind == "PartitionedBandedSolver":
+        fac, piv, V, W, r_fac, r_piv, strips, DBC = leaves
+        offsets, p, blk, b, n, mode = aux
+        if mode == "lu":
+            piv, r_piv = _pivots(piv, device), _pivots(r_piv, device)
+        else:
+            piv = _t(piv, device, torch.int32)
+            r_piv = _t(r_piv, device, torch.int32)
+        return PartitionedBandedSolver.from_factors(
+            _t(fac, device), piv, _t(V, device), _t(W, device),
+            _t(r_fac, device), r_piv, _t(strips, device),
+            tuple(_t(x, device) for x in DBC), offsets, p, blk, b, n, mode)
+    if kind == "BlockTridiagSolver":
+        Sinv, B, C, D, strips = leaves
+        offsets, nblk, bt, n, mode, refine = aux
+        return BlockTridiagSolver.from_factors(
+            _t(Sinv, device), _t(B, device), _t(C, device), _t(D, device),
+            _t(strips, device), offsets, nblk, bt, n, mode, refine)
+    if kind == "DenseBlockLU":
+        lu, piv = leaves
+        return DenseBlockLU(_t(lu, device), _pivots(piv, device))
+    raise ValueError(f"unknown solver kind {kind!r}")
+
+
+def carry_from_arrays(Vre, Vim, Hre, Him, device=None):
+    """An IAR scan carry ``(Vre, Vim, Hre, Him)`` from numpy arrays (fresh
+    tensors: the port's scan updates its carry in place)."""
+    return tuple(torch.tensor(np.asarray(x), device=device)
+                 for x in (Vre, Vim, Hre, Him))

@@ -1,0 +1,188 @@
+"""Stacked-diagonal (DIA) term banks — the streaming SpMV format for banded
+operators.
+
+Storage: shared ``offsets (ndiag,)``; stacked ``data (m_terms, ndiag, n)``
+with ``data[i, d, r] = A_i[r, r + offsets[d]]`` (zero where out of range).
+The fused multi-term apply ``y = sum_i A_i W[:, i]`` runs the hand-written
+CUDA kernel (``ops/dia_kernel.py``) on a CUDA tensor and its plain PyTorch
+twin on a CPU tensor; any other device raises.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..config import real_of, to_numpy_dtype
+from .dia_kernel import dia_lincomb, dia_lincomb_plain, shifted_rows
+
+__all__ = ["DiaTermBank"]
+
+
+class DiaTermBank:
+    is_sparse = True
+
+    def __init__(self, data, offsets, shape, fro_norms=None, host_data=None):
+        self.data = data  # (m, ndiag, n)
+        self.offsets = tuple(int(o) for o in offsets)
+        self.shape = tuple(shape)
+        if fro_norms is None:
+            fro_norms = torch.sqrt(torch.sum(torch.abs(data) ** 2, dim=(1, 2)))
+        self.fro_norms = fro_norms
+        self._host_data = host_data  # construction-time numpy mirror
+        # the kernel reads the offsets from a small device array
+        self.offsets_dev = torch.tensor(self.offsets, dtype=torch.int32,
+                                        device=data.device)
+
+    @property
+    def nterms(self):
+        return self.data.shape[0]
+
+    @property
+    def n(self):
+        return self.shape[0]
+
+    @property
+    def ndiag(self):
+        return self.data.shape[1]
+
+    @property
+    def dtype(self):
+        return self.data.dtype
+
+    @property
+    def device(self):
+        return self.data.device
+
+    @classmethod
+    def from_matrices(cls, mats, dtype=None, device=None):
+        import scipy.sparse as sp
+
+        mats = [sp.csr_matrix(A) if not sp.issparse(A) else A.tocsr()
+                for A in mats]
+        n = mats[0].shape[0]
+        offs = sorted(set().union(*[set(A.todia().offsets.tolist())
+                                    for A in mats]))
+        if dtype is None:
+            dtype = np.result_type(*[A.dtype for A in mats])
+        data = np.zeros((len(mats), len(offs), n), dtype=to_numpy_dtype(dtype))
+        for i, A in enumerate(mats):
+            D = A.todia()
+            for od, off in enumerate(D.offsets):
+                d = offs.index(off)
+                # scipy dia stores data[k, j] = A[j - off, j]; we want
+                # data[d, r] = A[r, r + off] -> shift by off
+                col = D.data[od]
+                if col.shape[0] < n:  # scipy >= 1.17 trims empty tail cols
+                    col = np.pad(col, (0, n - col.shape[0]))
+                if off >= 0:
+                    data[i, d, : n - off] = col[off:]
+                else:
+                    data[i, d, -off:] = col[: n + off]
+        return cls(torch.from_numpy(data).to(device), offs, (n, n),
+                   host_data=data)
+
+    def host_csr_terms(self):
+        """scipy CSR mirrors of every term, from host data when available."""
+        import scipy.sparse as sp
+
+        n = self.n
+        data = (self._host_data if self._host_data is not None
+                else self.data.cpu().numpy())
+        r = np.arange(n)
+        out = []
+        for i in range(data.shape[0]):
+            rows, cols, vals = [], [], []
+            for d, off in enumerate(self.offsets):
+                rr = r[: n - off] if off >= 0 else r[-off:]
+                rows.append(rr)
+                cols.append(rr + off)
+                vals.append(data[i, d][rr])
+            out.append(sp.csr_matrix(
+                (np.concatenate(vals),
+                 (np.concatenate(rows), np.concatenate(cols))),
+                shape=(n, n)))
+        return out
+
+    def lincomb_apply(self, W):
+        """``y = sum_i A_i @ W[:, i]``.
+
+        A CPU tensor takes the plain twin; any other device launches the CUDA
+        kernel (which raises on what it does not take).  The bank's data is
+        real, so a complex ``W`` on the card is two real kernel calls."""
+        dt = torch.promote_types(W.dtype, self.data.dtype)
+        if W.device.type == "cpu":
+            return dia_lincomb_plain(self.data.to(dt), self.offsets, W.to(dt))
+        if dt.is_complex:
+            data = self.data.to(real_of(dt)).contiguous()
+            Wc = W.to(dt)
+            yre = dia_lincomb(data, self.offsets_dev, Wc.real.contiguous())
+            yim = dia_lincomb(data, self.offsets_dev, Wc.imag.contiguous())
+            return torch.complex(yre, yim)
+        return dia_lincomb(self.data.to(dt).contiguous(), self.offsets_dev,
+                           W.to(dt).contiguous())
+
+    def combine(self, w):
+        """``sum_i w_i A_i`` as a new single-term bank."""
+        w = torch.as_tensor(w).to(self.device)
+        dt = torch.promote_types(w.dtype, self.data.dtype)
+        nz = torch.tensordot(w.to(dt), self.data.to(dt), dims=1)  # (ndiag, n)
+        return DiaTermBank(nz[None], self.offsets, self.shape)
+
+    def term(self, i):
+        """Single-term view (matvec/matmat/to_dense/@)."""
+        return DiaTermBank(self.data[i][None], self.offsets, self.shape)
+
+    def to_dense(self):
+        """Dense matrix of a single-term bank."""
+        if self.nterms != 1:
+            raise ValueError("to_dense needs a single-term bank")
+        return self.to_dense_sum(torch.ones(1, dtype=self.dtype))
+
+    def to_dense_sum(self, w):
+        n = self.n
+        w = torch.as_tensor(w).to(self.device)
+        dt = torch.promote_types(w.dtype, self.data.dtype)
+        nz = torch.tensordot(w.to(dt), self.data.to(dt), dims=1)
+        M = torch.zeros(self.shape, dtype=dt, device=self.device)
+        r = torch.arange(n, device=self.device)
+        for d, off in enumerate(self.offsets):
+            rows = r[: n - off] if off >= 0 else r[-off:]
+            M[rows, rows + off] += nz[d][rows]
+        return M
+
+    def __matmul__(self, x):
+        return self.matvec(x) if x.ndim == 1 else self.matmat(x)
+
+    def matvec(self, x):
+        """Single combined-matrix matvec (nterms must be 1)."""
+        dt = torch.promote_types(x.dtype, self.data.dtype)
+        x = x.to(dt)
+        y = torch.zeros(self.n, dtype=dt, device=x.device)
+        for d, off in enumerate(self.offsets):
+            y = y + self.data[0, d, :].to(dt) * shifted_rows(x, off)
+        return y
+
+    def matmat(self, X):
+        dt = torch.promote_types(X.dtype, self.data.dtype)
+        X = X.to(dt)
+        Y = torch.zeros(X.shape, dtype=dt, device=X.device)
+        for d, off in enumerate(self.offsets):
+            Y = Y + self.data[0, d, :, None].to(dt) * shifted_rows(X, off)
+        return Y
+
+    def lincomb_apply_mat(self, W):
+        """``sum_i A_i @ W[:, :, i]`` for W (n, k, m) -> (n, k)."""
+        dt = torch.promote_types(W.dtype, self.data.dtype)
+        W = W.to(dt)
+        y = torch.zeros(W.shape[:2], dtype=dt, device=W.device)
+        for d, off in enumerate(self.offsets):
+            y = y + torch.einsum("in,nki->nk", self.data[:, d, :].to(dt),
+                                 shifted_rows(W, off))
+        return y
+
+    def mm_apply(self, V, F):
+        """``sum_i A_i @ (V @ F_i)`` with F stacked (m, k, k)."""
+        dt = torch.promote_types(torch.promote_types(V.dtype, F.dtype),
+                                 self.data.dtype)
+        VF = torch.einsum("nk,mkl->nlm", V.to(dt), F.to(dt).to(V.device))
+        return self.lincomb_apply_mat(VF)

@@ -1,0 +1,287 @@
+"""Complex-as-real infinite Arnoldi (IAR) scan.
+
+The iteration is carried in split re/im channels, as the JAX package does it,
+so the port can be held against it step by step:
+
+* the Mlincomb of a step is a small complex coefficient table applied as four
+  real GEMMs + one split bank apply (two launches of the DIA SpMV kernel on
+  the card: the re and the im channel);
+* the shifted solve is a ``solve_pair(zre, zim)`` object factored once
+  (:class:`neptpu_torch.ops.partitioned.InterleavedSMW`, or the dense
+  :class:`DenseBlockLU` fallback);
+* DGKS orthogonalization against the stacked basis is paired real GEMMs.
+
+The JAX package compiles the steps into one ``lax.scan``; here they are an
+eager Python loop that writes IN PLACE into the preallocated
+``(m+1, m+1, n)`` basis tensors and the ``(m+1, m)`` Hessenberg pair (the JAX
+``.at[].set`` updates).  Ritz extraction runs on the host every
+``check_error_every`` steps.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from ..config import finfo_max, to_torch_dtype
+
+__all__ = ["DenseBlockLU", "as_pair_solver", "run_iar_real", "auto_theta",
+           "apply_theta"]
+
+
+class DenseBlockLU:
+    """Dense real 2n x 2n block LU of ``[[Re M, -Im M], [Im M, Re M]]``
+    exposing the ``solve_pair`` contract of the scan."""
+
+    def __init__(self, lu, piv):
+        self.lu, self.piv = lu, piv
+
+    @property
+    def n(self):
+        return self.lu.shape[0] // 2
+
+    def astype(self, dt):
+        return DenseBlockLU(self.lu.to(to_torch_dtype(dt)), self.piv)
+
+    def solve_pair(self, zre, zim):
+        n = zre.shape[0]
+        rhs = torch.cat([zre, zim])
+        sol = torch.linalg.lu_solve(self.lu, self.piv,
+                                    rhs[:, None] if rhs.ndim == 1 else rhs)
+        sol = sol[:, 0] if rhs.ndim == 1 else sol
+        return sol[:n], sol[n:]
+
+
+def as_pair_solver(lu_piv):
+    """(lu, piv) tuple -> DenseBlockLU; solver objects pass through."""
+    if hasattr(lu_piv, "solve_pair"):
+        return lu_piv
+    return DenseBlockLU(*lu_piv)
+
+
+def _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled, inv_theta):
+    """One complex-as-real IAR step, ``k`` the 1-based step index; updates
+    the carry ``(Vre, Vim, Hre, Him)`` in place and returns beta.
+
+    ``scaled``: run in the Taylor-normalized space ``u_j = (j!/theta^j) y_j``
+    — the block shift carries a constant ``1/theta`` factor instead of
+    ``1/(j+1)`` and the coefficient table must be the scaled table."""
+    Vre, Vim, Hre, Him = carry
+    dt, dev = Vre.dtype, Vre.device
+    jblk = torch.arange(m + 1, device=dev)
+    # block shift of the last basis vector: row j+1 of y = s_j * V[k-1][j]
+    # for j < k (the JAX roll under the jblk < k mask), row 0 filled below
+    if scaled:
+        sj = torch.full((k,), inv_theta, dtype=dt, device=dev)
+    else:
+        sj = (1.0 / (torch.arange(k, device=dev, dtype=torch.float64) + 1.0)
+              ).to(dt)
+    ytre = torch.zeros((m + 1, Vre.shape[2]), dtype=dt, device=dev)
+    ytim = torch.zeros_like(ytre)
+    ytre[1:k + 1] = Vre[k - 1, :k] * sj[:, None]
+    ytim[1:k + 1] = Vim[k - 1, :k] * sj[:, None]
+
+    # term weights: W = Y @ C^T, complex split into four small GEMMs
+    WreT = Cre @ ytre - Cim @ ytim  # (terms, n)
+    WimT = Cre @ ytim + Cim @ ytre
+    if hasattr(bank, "lincomb_apply_split"):
+        zre, zim = bank.lincomb_apply_split(WreT.T, WimT.T)
+    else:
+        zre = bank.lincomb_apply(WreT.T)
+        zim = bank.lincomb_apply(WimT.T)
+    zre, zim = zre.to(dt), zim.to(dt)
+    # identity term: -gamma * y_1
+    zre = zre - gre * ytre[1] + gim * ytim[1]
+    zim = zim - gre * ytim[1] - gim * ytre[1]
+
+    xre, xim = solver.solve_pair(zre, zim)
+    ytre[0] = -xre
+    ytim[0] = -xim
+
+    # DGKS (two-pass classical Gram-Schmidt) in paired-real arithmetic
+    wre, wim = ytre.reshape(-1), ytim.reshape(-1)
+    VreM = Vre.reshape(m + 1, -1)
+    VimM = Vim.reshape(m + 1, -1)
+
+    def cgs(wre, wim):
+        hre = VreM @ wre + VimM @ wim  # Re(conj(V) @ w)
+        him = VreM @ wim - VimM @ wre  # Im(conj(V) @ w)
+        wre = wre - (VreM.T @ hre - VimM.T @ him)
+        wim = wim - (VreM.T @ him + VimM.T @ hre)
+        return wre, wim, hre, him
+
+    wre, wim, h1re, h1im = cgs(wre, wim)
+    wre, wim, h2re, h2im = cgs(wre, wim)
+    hre, him = h1re + h2re, h1im + h2im
+    beta = torch.sqrt(torch.sum(wre**2) + torch.sum(wim**2))
+    Vre[k] = (wre / beta).reshape(m + 1, -1)
+    Vim[k] = (wim / beta).reshape(m + 1, -1)
+    Hre[:, k - 1] = torch.where(jblk == k, beta, hre)
+    Him[:, k - 1] = torch.where(jblk == k, torch.zeros_like(him), him)
+    return beta
+
+
+def _init_carry(m, v0re, v0im, dt):
+    """Zero basis pair (m+1, m+1, n) with the unit start vector in slot
+    (0, 0), and a zero Hessenberg pair (m+1, m)."""
+    n, dev = v0re.shape[0], v0re.device
+    nrm0 = torch.sqrt(torch.sum(v0re**2) + torch.sum(v0im**2))
+    Vre = torch.zeros((m + 1, m + 1, n), dtype=dt, device=dev)
+    Vim = torch.zeros_like(Vre)
+    Vre[0, 0] = v0re / nrm0
+    Vim[0, 0] = v0im / nrm0
+    Hre = torch.zeros((m + 1, m), dtype=dt, device=dev)
+    return (Vre, Vim, Hre, torch.zeros_like(Hre))
+
+
+def _scan_chunk(bank, m, nsteps, k0, carry, Cre, Cim, gre, gim, solver,
+                scaled=False, inv_theta=1.0):
+    """Advance ``nsteps`` IAR steps starting at (1-based) step ``k0``; the
+    carry is updated in place and returned."""
+    for k in range(int(k0), int(k0) + int(nsteps)):
+        _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled,
+              inv_theta)
+    return carry
+
+
+def _extract_ritz(carry, k_done, m, n, sigma, gamma):
+    """Host Ritz extraction from the first ``k_done`` Krylov steps:
+    lam = sigma + gamma / theta, Q = V0[:, :k] @ Z (unit columns), and the
+    Arnoldi residual estimates ``|H[k, k-1]| |Z[k-1, s]|`` (a cheap ranking
+    of which Ritz pairs deserve an exact residual check)."""
+    Vre, Vim, Hre, Him = carry
+    Hre_h = Hre.cpu().numpy().astype(np.float64)
+    Him_h = Him.cpu().numpy().astype(np.float64)
+    H = Hre_h[:k_done, :k_done] + 1j * Him_h[:k_done, :k_done]
+    D, Z = np.linalg.eig(H)
+    lams = complex(sigma) + complex(gamma) / D
+    beta_k = abs(Hre_h[k_done, k_done - 1] + 1j * Him_h[k_done, k_done - 1])
+    ests = beta_k * np.abs(Z[k_done - 1, :])
+    V0 = (Vre[:, 0, :].cpu().numpy().astype(np.float64)
+          + 1j * Vim[:, 0, :].cpu().numpy().astype(np.float64)).T  # (nv, m+1)
+    Q = V0[:n, :k_done] @ Z
+    qn = np.linalg.norm(Q, axis=0, keepdims=True)
+    Q = Q / qn
+    # estimate per unit of recovered eigvector norm: similarity-invariant
+    # ranking in the theta-scaled space
+    ests = ests / np.maximum(qn[0], np.finfo(float).tiny)
+    return lams, Q, ests
+
+
+def _filtered_errs(lams, Q, ests, resnorm, neigs):
+    """Exact residuals for the ``max(4 neigs, 16)`` most promising pairs by
+    Arnoldi estimate; the rest are inf (sort last, never converged)."""
+    cap = max(4 * int(neigs), 16)
+    errs = np.full(len(lams), np.inf)
+    idx = np.argsort(ests)[:cap] if len(lams) > cap else range(len(lams))
+    for s in idx:
+        errs[s] = resnorm(lams[s], Q[:, s])
+    return errs
+
+
+def auto_theta(Sre, Sim, m, dt):
+    """Fit the Taylor-space scale ``theta`` to a per-factorial table
+    ``S[i, j] = gamma^j f_i^{(j)}(sigma) / j!``: ``theta = exp(-slope of
+    log max_i |S_ij|)`` makes ``S_j theta^j`` O(1) across columns, clamped so
+    ``theta^{+-m}`` keeps ~1e6 headroom inside ``dt``'s range."""
+    g = np.maximum(np.abs(Sre), np.abs(Sim)).max(axis=0)[1:]
+    jj = np.arange(1, len(g) + 1, dtype=float)
+    ok = np.isfinite(g) & (g > 0)
+    if ok.sum() < 2:
+        return 1.0
+    slope = np.polyfit(jj[ok], np.log(g[ok]), 1)[0]
+    theta = float(np.exp(-slope))
+    lim = (finfo_max(dt) / 1e6) ** (1.0 / max(m, 1))
+    if lim <= 1.0:
+        return 1.0
+    return float(np.clip(theta, 1.0 / lim, lim))
+
+
+def apply_theta(Sre, Sim, theta):
+    """Multiply column j of a table by theta^j (progressive product)."""
+    Sre = np.array(Sre, dtype=np.float64, copy=True)
+    Sim = np.array(Sim, dtype=np.float64, copy=True)
+    acc = 1.0
+    for j in range(1, Sre.shape[1]):
+        acc *= theta
+        Sre[:, j] *= acc
+        Sim[:, j] *= acc
+    return Sre, Sim
+
+
+def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
+                 neigs, tol, resnorm, n=None, check_error_every=None,
+                 scaled=False, theta=1.0, device=None, precision=None):
+    """Shared complex-as-real IAR loop.
+
+    ``id_coeff``: coefficient of the virtual ``-coeff * y_1`` identity term
+    (pure-bank SPMFs pass 0).  ``check_error_every``: if set (and ``tol`` is
+    finite) the m-step scan runs in chunks of that many steps; after each the
+    Hessenberg pair and first-block basis rows come to the host, Ritz pairs
+    are extracted and ``resnorm`` measured, and the run stops once ``neigs``
+    pairs are below ``tol``.  ``precision`` is accepted for parity with the
+    JAX package and does nothing: TF32 is off (``neptpu_torch.config``), so
+    float32 products already run in full float32.  Returns ``(lams, Q,
+    info)`` over the converged pairs, residual-sorted."""
+    del precision  # see docstring
+    dt = to_torch_dtype(dt)
+    solver = as_pair_solver(lu_piv)
+    if hasattr(solver, "astype"):
+        solver = solver.astype(dt)
+    if n is None:
+        n = int(solver.n)
+    if device is None:
+        device = bank.device
+    v = np.asarray(v, dtype=complex)
+    id_coeff = complex(id_coeff)
+    inv_theta = 1.0 / float(theta)
+    Cre_t = torch.as_tensor(np.asarray(Cre), dtype=dt, device=device)
+    Cim_t = torch.as_tensor(np.asarray(Cim), dtype=dt, device=device)
+    args = (Cre_t, Cim_t, id_coeff.real, id_coeff.imag, solver)
+
+    def start():
+        return _init_carry(m, torch.as_tensor(v.real, dtype=dt, device=device),
+                           torch.as_tensor(v.imag, dtype=dt, device=device),
+                           dt)
+
+    t0 = time.perf_counter()
+    t_check = 0.0
+    if check_error_every and np.isfinite(tol):
+        chunk = int(check_error_every)
+        carry = start()
+        k_done = 0
+        best = None  # keep the BEST peek: at deep Krylov degree the f32
+        # basis can degrade, and the final extraction must not lose pairs
+        # that an earlier peek had already certified
+        while k_done < m:
+            steps = min(chunk, m - k_done)
+            carry = _scan_chunk(bank, m, steps, k_done + 1, carry, *args,
+                                scaled=scaled, inv_theta=inv_theta)
+            k_done += steps
+            tc = time.perf_counter()
+            lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma, gamma)
+            errs = _filtered_errs(lams, Q, ests, resnorm, neigs)
+            t_check += time.perf_counter() - tc
+            ncv = int(np.sum(errs < tol))
+            top = np.sort(errs)[: int(neigs)]
+            score = (ncv, -float(np.sum(np.log10(np.maximum(top, 1e-300)))))
+            if best is None or score > best[0]:
+                best = (score, lams, Q, errs)
+            if ncv >= neigs:
+                break
+        _, lams, Q, errs = best
+    else:
+        carry = _scan_chunk(bank, m, m, 1, start(), *args, scaled=scaled,
+                            inv_theta=inv_theta)
+        k_done = m
+        lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma, gamma)
+        errs = _filtered_errs(lams, Q, ests, resnorm, neigs)
+    t_scan = time.perf_counter() - t0
+
+    idx = np.argsort(errs)
+    nconv = int(np.sum(errs < tol)) if np.isfinite(tol) else len(errs)
+    take = idx[: min(neigs, nconv)]
+    info = {"t_scan": t_scan, "t_check": t_check, "nconv": nconv,
+            "k_done": k_done, "errs": errs[idx]}
+    return lams[take], Q[:, take], info

@@ -1,0 +1,76 @@
+"""Shared fixtures of the PyTorch-port parity tests (``test_torch_*.py``).
+
+Inputs are made with numpy from a seed and handed to both packages, so the
+JAX reference (``neptpu``, on the CPU in float64) and the port
+(``neptpu_torch``, on a torch CPU device) compute from identical operands.
+"""
+import numpy as np
+import scipy.sparse as sp
+import torch
+
+# tier-1 runs several pytest workers on one host: one intra-op thread each
+torch.set_num_threads(1)
+
+# the small gun-structured fixture's shift and scale (its spectrum spans
+# about [0, 8 (nx+1)^2]; the gun_like bench point sits at a quarter of it)
+SMALL_SIGMA = 1250.0 + 5.0j
+SMALL_GAMMA = 600.0
+
+
+def small_gun_like(nx=24, seed=0):
+    """Scipy operands ``(K, M, W1, W2)`` with the gun_like structure at
+    n = nx^2: the 2D 5-point Laplacian scaled by (nx+1)^2, the diagonal mass
+    matrix 1 + 0.1 cos(r), and an 8x8 boundary box W1 (rows/cols drawn with
+    ``seed``) with W2 = W1^T.  It takes the same DIA bank + low-rank path as
+    full gun_like."""
+    n = nx * nx
+    rng = np.random.default_rng(seed)
+    L1 = sp.diags([-np.ones(nx - 1), 2 * np.ones(nx), -np.ones(nx - 1)],
+                  [-1, 0, 1])
+    L2d = sp.kron(L1, sp.eye(nx)) + sp.kron(sp.eye(nx), L1)
+    K = (L2d.tocsr() * (nx + 1) ** 2).tocsr()
+    M = sp.diags(np.full(n, 1.0) + 0.1 * np.cos(np.arange(n))).tocsr()
+    idx = rng.choice(n, size=8, replace=False)
+    vals = rng.standard_normal((8, 8))
+    W1 = sp.csr_matrix((vals.ravel(), (np.repeat(idx, 8), np.tile(idx, 8))),
+                       shape=(n, n))
+    W2 = W1.T.tocsr()
+    return K, M, W1, W2
+
+
+def to_spec(obj):
+    """A JAX pytree object (bank or solver) -> the numpy spec triple
+    ``(kind, leaves, aux)`` that ``neptpu_torch.interop`` reads."""
+    children, aux = obj.tree_flatten()
+
+    def conv(c):
+        if c is None:
+            return None
+        if hasattr(c, "tree_flatten"):
+            return to_spec(c)
+        if isinstance(c, tuple):
+            return tuple(conv(x) for x in c)
+        return np.asarray(c)
+
+    return type(obj).__name__, [conv(c) for c in children], aux
+
+
+def backward_errmeasure(mats, fv, fun_scalars):
+    """Backward error ``||M(lam) q|| / sum_i |f_i(lam)| ||A_i||_F`` on the
+    host (``fun_scalars`` from either package)."""
+    fro = np.array([np.sqrt(np.abs(A.multiply(A.conj())).sum())
+                    for A in mats])
+    csr = [A.tocsr() for A in mats]
+
+    def err(lam, q):
+        w = fun_scalars(fv, lam)
+        y = sum(wi * (A @ q) for wi, A in zip(w, csr))
+        return float(np.linalg.norm(y) / (np.abs(w) @ fro))
+
+    return err
+
+
+def rel_err(a, b):
+    a = np.asarray(a)
+    b = np.asarray(b)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
