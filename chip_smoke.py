@@ -1,25 +1,48 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``neptpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--profile TRACE.json]
 
-Phases, one informative line each (any failure exits non-zero):
+Phases, a few informative lines each (any failure exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
-2. build: compile the hand-written DIA SpMV kernel (``neptpu_torch/csrc/
+2. build: compile the hand-written DIA SpMV kernels (``neptpu_torch/csrc/
    dia_spmv.cu``) with nvcc for sm_90a, timed apart from everything else;
-3. kernel vs. its plain PyTorch twin on the card at four shapes (gun_like's
-   bank in float32 and float64, the SpMV headline shape of ``bench.py``, a
-   wide 211-diagonal bank): max relative error against the twin within the
-   stated tolerance, median CUDA-event times of both, effective GB/s;
-4. main path: ``nep_gallery("gun_like")`` on the card -> float32
-   complex-as-real IAR (SPIKE + SMW shifted solve, kernel-backed bank apply)
-   -> cluster the candidates -> host Newton refinement to backward error
-   1e-9 (driven toward 1e-11), the ``bench.py`` gun_like protocol.  Requires
-   >= 10 distinct pairs at backward error <= 1e-9, >= 10 of them within rel
-   1e-9 of the pinned oracle, and >= 2 kernel launches per scan step.
+3. kernels vs. their plain PyTorch twins on the card: the single-operand
+   kernel at four shapes (gun_like's bank in float32 and float64, the SpMV
+   headline shape of ``bench.py``, a synthetic 211-diagonal bank) and the
+   re/im pair kernel at the gun_like, wep, wep_large and headline shapes (each
+   waveguide bank the main paths build is held against the shape checked
+   here) — max
+   relative error against the twin within the stated tolerance, the pair
+   equal to two single launches, median CUDA-event times of kernel, twin and
+   the nearest library calls (a ``torch.sparse`` CSR product of the stacked
+   bank; the port's own CSR bank), and each time's bound from the bytes moved;
+4. main paths, through the entry points a user calls, each with the kernel
+   launch counts set to 0 just before and read just after:
+   * SpMV headline: a DIA bank at n = 1e6 (4 terms x 9 diagonals) applied
+     through ``DiaTermBank.lincomb_apply``;
+   * gun_like (n = 9956): float32 complex-as-real IAR (SPIKE + SMW shifted
+     solve, kernel-backed bank apply) -> cluster -> Newton refinement to
+     backward error 1e-9 (driven toward 1e-11), the ``bench.py`` protocol;
+     >= 10 distinct pairs, >= 10 within rel 1e-9 of the pinned oracle;
+   * wep (waveguide, n = 11655, 213 terms, 3 shifts) at full size:
+     multishift scan -> cluster -> refinement on the card
+     (``backend="chip"``, the choice ``bench.py`` leaves to
+     ``BENCH_WEP_REFINE``); >= 10 distinct pairs at 1e-9, and at most
+     ``MAX_HOST_FALLBACK`` of the refinement's shifts may fail the device
+     solver's validation and fall back to a host splu.  The same candidates
+     are then refined with ``backend="auto"`` (the host, below 2n = 2e5) and
+     that count is printed, not gated;
+   * wep_large (n = 13915, 4 shifts) at full size, the same way: >= 10
+     distinct pairs at 1e-9;
+   every scan step must launch the pair kernel at least once;
+5. refine-chip: the gun_like candidates refined again on the card
+   (``BatchedShiftSMW``: float32 factors + float64 iterative refinement)
+   against the host backend: >= 10 distinct at 1e-9, eigenvalues within rel
+   1e-9 of the host backend's.
 
-The line before the last is a JSON object describing the kernel; the last
+The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
 CUDA device the script exits non-zero and prints no result.
 """
@@ -53,6 +76,25 @@ GUN_LIKE_PINNED = np.array([
 SIGMA, GAMMA = 2.0e4 + 100j, 1.0e4
 # headline SpMV bank of bench.py:60-72 (n = 1e6, 4 terms, 9 diagonals)
 HEADLINE_N, HEADLINE_M = 1_000_000, 4
+# the waveguide configurations of bench.py:445-477 (JARLEBRING, SPMF form)
+WEP = dict(nx=109, nz=105, sigmas=[-3 - 3.5j, -4.5 - 4.5j, -1.2 - 1.6j])
+WEP_LARGE = dict(nx=119, nz=115,
+                 sigmas=[-3 - 3.5j, -4.5 - 4.5j, -1.2 - 1.6j, -2.1 - 2.4j])
+# of the chip refine backend's shifts, at most this many per phase may fail
+# the device solver's validation and be solved by a host splu instead
+MAX_HOST_FALLBACK = 2
+DEVICE = "cuda"  # every phase runs on the card
+# published peaks of one H100 SXM (NVIDIA data sheet): the bounds' rates
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # vector rates
+
+
+def wep_bank_shape(cfg):
+    """(m, offsets, n) of a waveguide's main DIA bank: three terms on the
+    five-point stencil of the (nx + 2) x nz grid, the z-neighbours one short
+    of the row length because the periodic wrap is in the low-rank part."""
+    nz = cfg["nz"]
+    return 3, (-nz, -nz + 1, -1, 0, 1, nz - 1, nz), (cfg["nx"] + 2) * nz
 
 
 class SmokeFailure(Exception):
@@ -156,31 +198,88 @@ def _median_ms(torch, fn, reps=20, inner=10):
     return float(np.median(times))
 
 
+def _bound(n, m, ndiag, noperands, itemsize, dtype_name):
+    """Least time (ms) for the fused apply of one (m, ndiag, n) bank to
+    ``noperands`` (n, m) operands: each input read once, each output written
+    once, against the published memory rate; 2 flops per bank word and
+    operand against the published vector rate.  Returns (ms, by, bytes)."""
+    nbytes = (m * ndiag * n + noperands * (n * m + n)) * itemsize
+    flops = 2 * m * ndiag * n * noperands
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    return ((t_bytes, "bytes", nbytes) if t_bytes >= t_ops
+            else (t_ops, "operations", nbytes))
+
+
+def _stacked_csr(torch, data, offs):
+    """The bank as ONE ``torch.sparse`` CSR matrix (n, n*m) acting on the
+    row-major flattening of W (n, m): ``y = A @ W.reshape(-1)`` is the fused
+    apply — the library yardstick, used nowhere in the port."""
+    m, ndiag, n = data.shape
+    r = torch.arange(n, device=data.device)
+    rows, cols, vals = [], [], []
+    for d, off in enumerate(offs):
+        ok = (r + off >= 0) & (r + off < n)
+        for i in range(m):
+            rows.append(r[ok])
+            cols.append((r[ok] + off) * m + i)
+            vals.append(data[i, d][ok])
+    A = torch.sparse_coo_tensor(
+        torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
+        (n, n * m)).coalesce()
+    return A.to_sparse_csr()
+
+
+def _library_times(torch, data, offs, W, Wim, y_plain, tol):
+    """(single_ms, pair_ms) of the ``torch.sparse`` CSR product on the same
+    operands, checked against the plain result first."""
+    A = _stacked_csr(torch, data, offs)
+    w1 = W.reshape(-1)
+    w2 = torch.stack([W.reshape(-1), Wim.reshape(-1)], dim=1)
+    rel = float((A @ w1 - y_plain).abs().max() / y_plain.abs().max())
+    check(rel <= tol, f"library CSR product disagrees with the plain "
+                      f"version ({rel:.3e})")
+    reps, inner = (5, 5) if data.shape[2] > 100_000 else (20, 10)
+    return (_median_ms(torch, lambda: A @ w1, reps, inner),
+            _median_ms(torch, lambda: A @ w2, reps, inner))
+
+
 def phase_kernel_checks(torch, dia_kernel, gun_bank):
-    """Kernel vs. plain twin at the four shapes; returns the gun f32 row."""
-    gen = torch.Generator(device="cuda").manual_seed(0)
+    """Both kernels vs. their plain twins; returns rows keyed by shape."""
+    from neptpu_torch.ops.sparse import make_term_bank
+
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
     w = int(round(np.sqrt(HEADLINE_N)))
+    head_offs = (-w - 1, -w, -w + 1, -1, 0, 1, w - 1, w, w + 1)
+    wm, wl = wep_bank_shape(WEP), wep_bank_shape(WEP_LARGE)
+    # name, data (None: random), offsets, n, m, tolerance, check the pair too
     shapes = [
         ("gun_like f32", gun_bank.data.to(torch.float32), gun_bank.offsets,
-         1e-5),
-        ("headline f32", None, (-w - 1, -w, -w + 1, -1, 0, 1, w - 1, w, w + 1),
-         1e-5),
-        ("wide f32", None, tuple(range(-105, 106)), 1e-5),
+         None, None, 1e-5, True),
+        ("wep f32", None, wm[1], wm[2], wm[0], 1e-5, True),
+        ("wep_large f32", None, wl[1], wl[2], wl[0], 1e-5, True),
+        ("headline f32", None, head_offs, HEADLINE_N, HEADLINE_M, 1e-5, True),
+        ("wide f32", None, tuple(range(-105, 106)), 11655, 2, 1e-5, False),
         ("gun_like f64", gun_bank.data.to(torch.float64), gun_bank.offsets,
-         1e-12),
+         None, None, 1e-12, True),
     ]
-    rows = []
-    for name, data, offs, tol in shapes:
+    # the launch floor: an empty kernel through the same ctypes route
+    floor_ms = _median_ms(torch, lambda: dia_kernel.empty_launch(DEVICE))
+    print(f"[kernel] empty-kernel launch floor {floor_ms * 1e3:.2f} us per "
+          "call (ctypes + launch, back to back)", flush=True)
+    rows = {}
+    for name, data, offs, n, m, tol, pair in shapes:
         if data is None:
-            n = HEADLINE_N if name.startswith("headline") else 11655
-            m = HEADLINE_M if name.startswith("headline") else 2
             data = torch.randn((m, len(offs), n), generator=gen,
-                               device="cuda", dtype=torch.float32)
+                               device=DEVICE, dtype=torch.float32)
         data = data.contiguous()
         m, ndiag, n = data.shape
-        W = torch.randn((n, m), generator=gen, device="cuda",
+        dtn = str(data.dtype).split(".")[1]
+        W = torch.randn((n, m), generator=gen, device=DEVICE,
                         dtype=data.dtype)
-        offs_dev = torch.tensor(offs, dtype=torch.int32, device="cuda")
+        Wim = torch.randn((n, m), generator=gen, device=DEVICE,
+                          dtype=data.dtype)
+        offs_dev = torch.tensor(offs, dtype=torch.int32, device=DEVICE)
         y = dia_kernel.dia_lincomb(data, offs_dev, W)
         torch.cuda.synchronize()
         y_plain = dia_kernel.dia_lincomb_plain(data, offs, W)
@@ -191,104 +290,352 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
                                                               W))
         plain_ms = _median_ms(torch, lambda: dia_kernel.dia_lincomb_plain(
             data, offs, W))
-        nbytes = (m * ndiag * n + n * m + n) * data.element_size()
+        bound_ms, by, nbytes = _bound(n, m, ndiag, 1, data.element_size(),
+                                      dtn)
+        lib_ms = lib_pair_ms = csr_ms = None
+        if pair:
+            lib_ms, lib_pair_ms = _library_times(torch, data, offs, W, Wim,
+                                                 y_plain, tol)
         print(f"[kernel] {name}: n={n} m={m} ndiag={ndiag} max_rel_err="
               f"{rel:.3e} (tol {tol:g}) max_abs_err={abs_err:.3e} kernel "
               f"{ms * 1e3:.2f} us ({nbytes / ms / 1e6:.1f} GB/s) plain "
-              f"{plain_ms * 1e3:.2f} us ({nbytes / plain_ms / 1e6:.1f} GB/s)",
+              f"{plain_ms * 1e3:.2f} us bound {bound_ms * 1e3:.3f} us by {by} "
+              f"({nbytes} B at 3.35 TB/s) sparse-CSR "
+              f"{'%.2f us' % (lib_ms * 1e3) if lib_ms else 'n/a'}",
               flush=True)
         check(rel <= tol, f"{name}: kernel disagrees with its twin "
                           f"(max rel err {rel:.3e} > {tol:g})")
-        rows.append({"shape": name, "max_abs_err": abs_err, "ms": ms,
-                     "plain_ms": plain_ms, "gbs": nbytes / ms / 1e6})
+        row = {"shape": name, "n": n, "m": m, "ndiag": ndiag,
+               "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+               "gbs": nbytes / ms / 1e6, "nbytes": nbytes}
+        rows[name] = row
+        if not pair:
+            continue
+        # the pair kernel: against its twin, and equal to two single launches
+        yre, yim = dia_kernel.dia_lincomb_pair(data, offs_dev, W, Wim)
+        torch.cuda.synchronize()
+        pre, pim = dia_kernel.dia_lincomb_pair_plain(data, offs, W, Wim)
+        p_abs = float(max((yre - pre).abs().max(), (yim - pim).abs().max()))
+        p_rel = p_abs / float(max(pre.abs().max(), pim.abs().max()))
+        y2 = dia_kernel.dia_lincomb(data, offs_dev, Wim)
+        equal = bool(torch.equal(yre, y) and torch.equal(yim, y2))
+        pair_ms = _median_ms(torch, lambda: dia_kernel.dia_lincomb_pair(
+            data, offs_dev, W, Wim))
+
+        def two_singles():
+            dia_kernel.dia_lincomb(data, offs_dev, W)
+            dia_kernel.dia_lincomb(data, offs_dev, Wim)
+
+        two_ms = _median_ms(torch, two_singles)
+        pair_plain_ms = _median_ms(
+            torch, lambda: dia_kernel.dia_lincomb_pair_plain(data, offs, W,
+                                                             Wim))
+        pb_ms, pby, pbytes = _bound(n, m, ndiag, 2, data.element_size(), dtn)
+        if n <= 100_000 and data.dtype == torch.float32:
+            # the port's own CSR bank on the same operands (two applies)
+            mats = [A.tocsr() for A in _bank_terms(data, offs)]
+            csr = make_term_bank(mats, dtype=np.float32, fmt="csr",
+                                 device=DEVICE)
+            csr_ms = _median_ms(torch, lambda: (csr.lincomb_apply(W),
+                                                csr.lincomb_apply(Wim)))
+        print(f"[kernel] {name} pair: max_rel_err={p_rel:.3e} (tol {tol:g}) "
+              f"equal_to_two_singles={equal} pair {pair_ms * 1e3:.2f} us "
+              f"({pbytes / pair_ms / 1e6:.1f} GB/s) 2x single "
+              f"{two_ms * 1e3:.2f} us plain {pair_plain_ms * 1e3:.2f} us "
+              f"bound {pb_ms * 1e3:.3f} us by {pby} ({pbytes} B) sparse-CSR "
+              f"{lib_pair_ms * 1e3:.2f} us CSR-bank x2 "
+              f"{'%.2f us' % (csr_ms * 1e3) if csr_ms else 'n/a'}",
+              flush=True)
+        check(p_rel <= tol, f"{name}: pair kernel disagrees with its twin "
+                            f"(max rel err {p_rel:.3e} > {tol:g})")
+        check(equal, f"{name}: pair kernel differs from two single launches")
+        rows[name + " pair"] = {
+            "shape": name, "n": n, "m": m, "ndiag": ndiag,
+            "max_abs_err": p_abs, "ms": pair_ms, "plain_ms": pair_plain_ms,
+            "bound_ms": pb_ms, "bound_by": pby, "library_ms": lib_pair_ms,
+            "two_singles_ms": two_ms, "csr_bank_ms": csr_ms,
+            "nbytes": pbytes}
     # same-run bandwidth reference: a device copy of 1 GiB (20x the L2)
-    x = torch.empty(2**28, dtype=torch.float32, device="cuda")
+    x = torch.empty(2**28, dtype=torch.float32, device=DEVICE)
     x.normal_(generator=gen)
     y = torch.empty_like(x)
     copy_ms = _median_ms(torch, lambda: y.copy_(x), reps=5, inner=5)
     copy_gbs = 2 * x.numel() * 4 / copy_ms / 1e6
-    head = rows[1]
+    head = rows["headline f32"]
     print(f"[kernel] stream copy 1 GiB: {copy_ms * 1e3:.1f} us = "
           f"{copy_gbs:.1f} GB/s; headline kernel at "
-          f"{head['gbs'] / copy_gbs:.3f} of it (bank 144 MB, W 16 MB)",
-          flush=True)
+          f"{head['gbs'] / copy_gbs:.3f} of it (bank 144 MB, W 16 MB); "
+          "bounds at the copy rate: " + ", ".join(
+              f"{k} {r['nbytes'] / copy_gbs / 1e3:.3f} us"
+              for k, r in rows.items()), flush=True)
     del x, y
     return rows
 
 
-def phase_main_path(torch, dia_kernel):
-    from neptpu_torch import nep_gallery
+def _bank_terms(data, offs):
+    """scipy CSR terms of a DIA bank held on the device."""
+    from neptpu_torch.ops.dia import DiaTermBank
+
+    n = data.shape[2]
+    return DiaTermBank(data, offs, (n, n)).host_csr_terms()
+
+
+def phase_spmv_path(torch, dia_kernel):
+    """Main path step: the SpMV headline through the bank's own apply."""
+    import scipy.sparse as sp
+
+    from neptpu_torch.ops.sparse import make_term_bank
+
+    rng = np.random.default_rng(0)
+    n, w = HEADLINE_N, int(round(np.sqrt(HEADLINE_N)))
+    offs = (-w - 1, -w, -w + 1, -1, 0, 1, w - 1, w, w + 1)
+    t0 = time.perf_counter()
+    mats = [sp.diags([rng.standard_normal(n - abs(o)).astype(np.float32)
+                      for o in offs], offs, shape=(n, n), format="csr")
+            for _ in range(HEADLINE_M)]
+    dia_kernel.DIA_SPMV.reset_counts()
+    bank = make_term_bank(mats, dtype=np.float32, device=DEVICE)
+    t_build = time.perf_counter() - t0
+    W = torch.from_numpy(rng.standard_normal((n, HEADLINE_M)).astype(
+        np.float32)).to(DEVICE)
+    ncalls = 50
+    y = bank.lincomb_apply(W)
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(ncalls):
+        y = bank.lincomb_apply(W)
+    b.record()
+    b.synchronize()
+    ms = a.elapsed_time(b) / ncalls
+    counts = dict(dia_kernel.DIA_SPMV.counts)
+    # correctness by the repo's own means: the scipy terms themselves
+    ref = sum(A @ W[:, i].cpu().numpy() for i, A in enumerate(mats))
+    rel = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
+    nnz = sum(A.nnz for A in mats)
+    print(f"[main] spmv headline n={n} terms={HEADLINE_M} ndiag={len(offs)} "
+          f"({type(bank).__name__}): {ms * 1e3:.2f} us per apply = "
+          f"{nnz / ms / 1e6:.2f} Gnnz/s, max_rel_err vs scipy {rel:.3e}, "
+          f"host build {t_build:.2f} s, launches {counts}", flush=True)
+    check(rel <= 1e-5, f"headline apply disagrees with scipy ({rel:.3e})")
+    check(counts["dia_lincomb"] >= ncalls + 1,
+          f"headline path launched the kernel {counts['dia_lincomb']} times "
+          f"in {ncalls + 1} applies")
+    return counts
+
+
+def run_time_to_tol(torch, dia_kernel, key, make_nep, sigma, gamma=1.0,
+                    maxit=60, neigs=10, tol=1e-6, tol_refine=1e-9,
+                    tol_gate=1e-9, k_target=10, need=10, pinned=None,
+                    refine_backend="auto", report_backend=None):
+    """One ``bench.py`` time-to-tolerance phase on the card: problem ->
+    float32 scan (one shift or several) -> cluster -> ``newton_refine``
+    with ``refine_backend``, gated.  ``report_backend``: refine the same
+    candidates once more with that backend, after the timed wall, and print
+    its count and time without gating.  Returns the launch counts, the
+    problem's terms and the candidates handed to the refinement."""
     from neptpu_torch.solvers.refine import newton_refine
     from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
-                                                iar_real_spmf)
+                                                iar_real_spmf,
+                                                iar_real_spmf_multishift)
 
+    torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dia_kernel.DIA_SPMV.launches = 0
+    dia_kernel.DIA_SPMV.reset_counts()
     t_start = time.perf_counter()
-    nep = nep_gallery("gun_like", device="cuda")
+    nep = make_nep()
     mats, fv = collect_spmf_terms(nep)
     backward = backward_errmeasure(mats, fv)
-    t_problem = time.perf_counter() - t_start
-    lams, Q, info = iar_real_spmf(
-        nep, sigma=SIGMA, gamma=GAMMA, maxit=60, neigs=10, tol=1e-6,
-        check_error_every=20, dtype=torch.float32, errmeasure=backward,
-        return_info=True, device="cuda")
+    t = {"problem": time.perf_counter() - t_start, "bank": 0.0,
+         "cluster": 0.0, "refine": 0.0}
+    kw = dict(gamma=gamma, maxit=maxit, neigs=neigs, tol=tol,
+              check_error_every=20, dtype=torch.float32, errmeasure=backward,
+              precision="highest", return_info=True, device=DEVICE)
+    if isinstance(sigma, list):
+        lams, Q, minfo = iar_real_spmf_multishift(nep, sigma, **kw)
+        per = minfo["per_shift"]
+        t["bank"] = minfo["t_bank"]
+    else:
+        lams, Q, info = iar_real_spmf(nep, sigma=sigma, **kw)
+        per = [info]
+        t["bank"] = info["t_bank"]
     torch.cuda.synchronize()
-    t_iar_done = time.perf_counter()
-    lams = np.asarray(lams)
-    Q = np.asarray(Q)
+    lams, Q = np.asarray(lams), np.asarray(Q)
+    t0 = time.perf_counter()
     errs0 = np.array([backward(complex(lams[j]), Q[:, j])
                       for j in range(len(lams))])
-    reps = cluster_candidates(lams, errs0, keep=10 + 6)
-    lams, Q, errs = newton_refine(
-        mats, fv, lams[reps], Q[:, reps], nsweeps=3, tol=1e-11,
-        errmeasure=backward, dtype=torch.float32, ir=3, shift_rel=1e-8,
-        backend="auto", target_distinct=10)
+    reps = cluster_candidates(lams, errs0, keep=k_target + 6)
+    cand = (lams[reps], Q[:, reps])
+    t1 = time.perf_counter()
+    rkw = dict(nsweeps=3, tol=tol_refine, errmeasure=backward,
+               dtype=torch.float32, ir=3, shift_rel=1e-8,
+               target_distinct=k_target, device=DEVICE)
+    stats = {"chip_shifts": 0, "host_fallback_shifts": 0}
+    lams, Q, errs = newton_refine(mats, fv, *cand, backend=refine_backend,
+                                  stats=stats, **rkw)
+    t["cluster"] = t1 - t0
+    t["refine"] = time.perf_counter() - t1
+    sel = distinct_below_tol(lams, errs, tol_gate)
     wall = time.perf_counter() - t_start
-    launches = dia_kernel.DIA_SPMV.launches
-    sel = distinct_below_tol(lams, errs, 1e-9)
-    matched = sum(1 for j in sel
-                  if np.min(np.abs(GUN_LIKE_PINNED - lams[j]))
-                  / abs(lams[j]) < 1e-9)
-    k_done = int(info["k_done"])
-    print(f"[main] gun_like n={nep.n}: k_done={k_done} nconv={info['nconv']} "
-          f"scaled={info['scaled']} candidates={len(reps)} distinct<=1e-9="
-          f"{len(sel)} matched_pinned={matched} max_backward="
-          f"{max(errs[sel]) if sel else float('nan'):.3e} launches="
-          f"{launches}", flush=True)
-    print(f"[main] t_problem={t_problem:.3f} s t_factorize="
-          f"{info['t_factorize']:.3f} s t_scan={info['t_scan']:.3f} s "
-          f"(host checks {info['t_check']:.3f} s) t_refine="
-          f"{wall - (t_iar_done - t_start):.3f} s wall={wall:.3f} s "
-          f"peak_device_mem={torch.cuda.max_memory_allocated() / 2**20:.1f} "
-          "MiB", flush=True)
-    check(len(sel) >= 10, f"only {len(sel)} distinct pairs at backward "
-                          "error <= 1e-9 (need 10)")
-    check(matched >= 10, f"only {matched} pairs within rel 1e-9 of the "
-                         "pinned oracle (need 10)")
-    check(launches >= 2 * k_done, f"kernel launched {launches} times in "
-                                  f"{k_done} scan steps (need >= 2 per step)")
-    return launches
+    counts = dict(dia_kernel.DIA_SPMV.counts)
+    k_done = [int(i["k_done"]) for i in per]
+
+    def tsum(name):
+        return sum(i[name] for i in per)
+
+    print(f"[main] {key} n={nep.n} terms={len(fv)} shifts={len(per)}: "
+          f"k_done={k_done} nconv={[int(i['nconv']) for i in per]} "
+          f"scaled={[bool(i['scaled']) for i in per]} candidates="
+          f"{len(cand[0])} refine={refine_backend} "
+          f"distinct<={tol_gate:g}={len(sel)} "
+          f"max_backward={max(errs[sel]) if sel else float('nan'):.3e} "
+          f"max_backward_candidates={max(errs):.3e} refine_shifts_on_card="
+          f"{stats['chip_shifts']} refine_shifts_fallen_back_to_host="
+          f"{stats['host_fallback_shifts']} launches={counts}", flush=True)
+    print(f"[main] {key} t_problem={t['problem']:.3f} s t_bank="
+          f"{t['bank']:.3f} s t_table={tsum('t_table'):.3f} s t_factorize="
+          f"{tsum('t_factorize'):.3f} s t_scan={tsum('t_scan'):.3f} s "
+          f"(host checks {tsum('t_check'):.3f} s) t_cluster="
+          f"{t['cluster']:.3f} s t_refine={t['refine']:.3f} s "
+          f"wall={wall:.3f} s peak_device_mem="
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    check(bool(np.isfinite(lams).all() and np.isfinite(errs).all()),
+          f"{key}: non-finite refined pairs")
+    check(len(sel) >= need, f"{key}: only {len(sel)} distinct pairs at "
+                            f"backward error <= {tol_gate:g} (need {need})")
+    if pinned is not None:
+        matched = sum(1 for j in sel
+                      if np.min(np.abs(pinned - lams[j])) / abs(lams[j])
+                      < 1e-9)
+        print(f"[main] {key} matched_pinned={matched}", flush=True)
+        check(matched >= need, f"{key}: only {matched} pairs within rel 1e-9 "
+                               f"of the pinned oracle (need {need})")
+    check(counts["dia_lincomb_pair"] >= sum(k_done),
+          f"{key}: pair kernel launched {counts['dia_lincomb_pair']} times "
+          f"in {sum(k_done)} scan steps (need >= 1 per step)")
+    if refine_backend == "chip":
+        check(stats["chip_shifts"] > 0
+              and stats["host_fallback_shifts"] <= MAX_HOST_FALLBACK,
+              f"{key}: chip refinement solved {stats['chip_shifts']} shifts "
+              f"on the card and {stats['host_fallback_shifts']} on the host "
+              f"(at most {MAX_HOST_FALLBACK} may fall back)")
+    if report_backend is not None:
+        t0 = time.perf_counter()
+        rl, _, re_ = newton_refine(mats, fv, *cand, backend=report_backend,
+                                   **rkw)
+        rsel = distinct_below_tol(rl, re_, tol_gate)
+        print(f"[main] {key} (not gated) the same {len(cand[0])} candidates "
+              f"with refine={report_backend}: distinct<={tol_gate:g}="
+              f"{len(rsel)} max_backward="
+              f"{max(re_[rsel]) if rsel else float('nan'):.3e} "
+              f"stalled_at={['%.3e' % e for e in sorted(re_) if e >= tol_gate]} "
+              f"t_refine={time.perf_counter() - t0:.3f} s", flush=True)
+    return {"counts": counts, "mats": mats, "fv": fv, "backward": backward,
+            "cand": cand, "t_scan": tsum("t_scan"),
+            "t_check": tsum("t_check"), "k_done": k_done}
 
 
-def phase_profile(torch, trace_path):
-    """The factorization and scan of the main path once more under
+def wep_nep(cfg):
+    from neptpu_torch import nep_gallery
+
+    return nep_gallery("waveguide", nx=cfg["nx"], nz=cfg["nz"],
+                       benchmark_problem="JARLEBRING", neptype="SPMF",
+                       device=DEVICE)
+
+
+def phase_wep(torch, dia_kernel, key, cfg):
+    return run_time_to_tol(
+        torch, dia_kernel, key, lambda: wep_nep(cfg), list(cfg["sigmas"]),
+        maxit=100, neigs=8, tol=1e-5, refine_backend="chip",
+        report_backend="auto")
+
+
+def phase_wep_bank_share(torch, key, cfg, out):
+    """Where a waveguide scan step's bank apply goes: the whole split apply
+    against its DIA main part alone (the rest is the stacked low-rank group
+    apply, plain PyTorch), beside the scan's time per step.  The bank is the
+    one the scan builds from these terms; its DIA part must have the shape
+    at which the kernel checks held the pair kernel against its twin."""
+    from neptpu_torch.ops.mixed import make_mixed_bank
+
+    bank = make_mixed_bank(out["mats"], dtype=np.float32, device=DEVICE)
+    built = (bank.inner.nterms, tuple(bank.inner.offsets), bank.n)
+    check(built == wep_bank_shape(cfg),
+          f"{key}: the main path's DIA bank is (m, offsets, n) = {built}, "
+          f"the kernel checks ran at {wep_bank_shape(cfg)}")
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    # the scan hands the bank transposed (terms, n) products
+    Wre = torch.randn((bank.nterms, bank.n), generator=gen, device=DEVICE).T
+    Wim = torch.randn((bank.nterms, bank.n), generator=gen, device=DEVICE).T
+    full = _median_ms(torch, lambda: bank.lincomb_apply_split(Wre, Wim))
+    main = _median_ms(torch, lambda: bank._main_pair(Wre, Wim))
+    # a step's wall without the host Ritz checks between the chunks
+    step = (out["t_scan"] - out["t_check"]) / max(sum(out["k_done"]), 1) * 1e3
+    ranks = [0 if L is None else L.shape[1] for L in (bank.Lr, bank.Li)]
+    print(f"[bank] {key} mixed bank: main {type(bank.inner).__name__} m="
+          f"{bank.inner.nterms} offsets={bank.inner.offsets}, low-rank "
+          f"columns re/im {ranks}; split apply {full * 1e3:.1f} us, its DIA "
+          f"pair launch {main * 1e3:.1f} us, low-rank groups "
+          f"{(full - main) * 1e3:.1f} us = {100 * (full - main) / full:.1f}% "
+          f"of the apply, {100 * (full - main) / step:.1f}% of a "
+          f"{step:.3f} ms scan step", flush=True)
+
+
+def phase_refine_chip(torch, gun):
+    """The gun_like candidates refined on the card, against the host
+    backend on the same candidates."""
+    from neptpu_torch.solvers.refine import newton_refine
+
+    lams0, Q0 = gun["cand"]
+    kw = dict(nsweeps=3, tol=1e-11, errmeasure=gun["backward"],
+              dtype=torch.float32, ir=3, shift_rel=1e-8, target_distinct=10)
+    res = {}
+    for backend in ("host", "chip"):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lams, Q, errs = newton_refine(gun["mats"], gun["fv"], lams0, Q0,
+                                      backend=backend, device=DEVICE, **kw)
+        torch.cuda.synchronize()
+        res[backend] = (lams, errs, time.perf_counter() - t0,
+                        torch.cuda.max_memory_allocated() / 2**20)
+    hl, he, ht, _ = res["host"]
+    cl, ce, ct, cmem = res["chip"]
+    hsel = distinct_below_tol(hl, he, 1e-9)
+    csel = distinct_below_tol(cl, ce, 1e-9)
+    gap = max(np.min(np.abs(hl[hsel] - cl[j])) / abs(cl[j]) for j in csel)
+    print(f"[refine-chip] gun_like {len(lams0)} candidates: chip backend "
+          f"distinct<=1e-9={len(csel)} max_backward={max(ce[csel]):.3e} in "
+          f"{ct:.3f} s (peak_device_mem {cmem:.1f} MiB); host backend "
+          f"distinct<=1e-9={len(hsel)} max_backward={max(he[hsel]):.3e} in "
+          f"{ht:.3f} s; max rel eigenvalue gap chip vs host {gap:.3e}",
+          flush=True)
+    check(len(csel) >= 10, f"chip refine: only {len(csel)} distinct pairs "
+                           "at backward error <= 1e-9 (need 10)")
+    check(gap <= 1e-9, f"chip refine: eigenvalues differ from the host "
+                       f"backend's by rel {gap:.3e} (> 1e-9)")
+
+
+def phase_profile(torch, trace_path, key, make_nep, sigma, gamma, maxit,
+                  neigs, tol):
+    """One shift's factorization and scan once more under
     ``torch.profiler``; the chrome trace goes to ``trace_path`` and its device
     kernels give the device's busy share and the time by kernel."""
     import collections
 
     from torch.profiler import ProfilerActivity, profile
 
-    from neptpu_torch import nep_gallery
     from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
                                                 iar_real_spmf)
 
-    nep = nep_gallery("gun_like", device="cuda")
+    nep = make_nep()
     mats, fv = collect_spmf_terms(nep)
-    kw = dict(sigma=SIGMA, gamma=GAMMA, maxit=60, neigs=10, tol=1e-6,
+    kw = dict(sigma=sigma, gamma=gamma, maxit=maxit, neigs=neigs, tol=tol,
               check_error_every=20, dtype=torch.float32,
               errmeasure=backward_errmeasure(mats, fv), return_info=True,
-              device="cuda")
+              device=DEVICE)
     iar_real_spmf(nep, **kw)  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -313,20 +660,19 @@ def phase_profile(torch, trace_path):
         by[e["name"]][0] += e["dur"]
         by[e["name"]][1] += 1
     check(busy_us > 0, "profile: no device activity traced")
-    print(f"[profile] factorize+scan wall {wall:.3f} s (t_factorize "
-          f"{info['t_factorize']:.3f} s, t_scan {info['t_scan']:.3f} s, "
-          f"k_done {info['k_done']}); device busy {busy_us / 1e6:.4f} s = "
-          f"{busy_us / 1e4 / wall:.1f}% of wall, {len(dev)} device ops",
-          flush=True)
-    for name, (us, cnt) in sorted(by.items(), key=lambda x: -x[1][0])[:8]:
+    print(f"[profile] {key} bank+factorize+scan wall {wall:.3f} s (t_bank "
+          f"{info['t_bank']:.3f} s, t_factorize {info['t_factorize']:.3f} s, "
+          f"t_scan {info['t_scan']:.3f} s, k_done {info['k_done']}); device "
+          f"busy {busy_us / 1e6:.4f} s = {busy_us / 1e4 / wall:.1f}% of wall, "
+          f"{len(dev)} device ops", flush=True)
+    for name, (us, cnt) in sorted(by.items(), key=lambda x: -x[1][0])[:10]:
         print(f"[profile]   {us / 1e3:8.3f} ms {100 * us / busy_us:5.1f}% "
               f"x{cnt:5d}  {name[:80]}", flush=True)
-    dia = [v for k, v in by.items() if "dia_lincomb" in k]
-    if dia:
-        us, cnt = dia[0]
-        print(f"[profile] dia_lincomb kernel: {cnt} launches, "
-              f"{us / cnt:.2f} us device time each, {100 * us / busy_us:.2f}% "
-              "of device time", flush=True)
+    for name, (us, cnt) in by.items():
+        if "dia_lincomb" in name:
+            print(f"[profile] {name[:60]}: {cnt} launches, {us / cnt:.2f} us "
+                  f"device time each, {100 * us / busy_us:.2f}% of device "
+                  "time", flush=True)
 
 
 def main():
@@ -336,8 +682,9 @@ def main():
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--profile", metavar="TRACE.json", default=None,
-                    help="also profile the main path's factorization and "
-                         "scan, writing the chrome trace to this file")
+                    help="also profile one shift's factorization and scan of "
+                         "gun_like and of wep; chrome traces go to this file "
+                         "and to the same name with '.wep' before the suffix")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -350,23 +697,52 @@ def main():
     t0 = time.perf_counter()
     phase_device(torch)
     phase_build(dia_kernel)
-    gun_bank = nep_gallery("gun_like", device="cuda").nep1.bank
+    gun_bank = nep_gallery("gun_like", device=DEVICE).nep1.bank
     rows = phase_kernel_checks(torch, dia_kernel, gun_bank)
-    launches = phase_main_path(torch, dia_kernel)
+
+    paths = {"spmv": phase_spmv_path(torch, dia_kernel)}
+    gun = run_time_to_tol(
+        torch, dia_kernel, "gun_like",
+        lambda: nep_gallery("gun_like", device=DEVICE), SIGMA, gamma=GAMMA,
+        maxit=60, neigs=10, tol=1e-6, tol_refine=1e-11,
+        pinned=GUN_LIKE_PINNED)
+    paths["gun_like"] = gun["counts"]
+    for key, cfg in (("wep", WEP), ("wep_large", WEP_LARGE)):
+        wep = phase_wep(torch, dia_kernel, key, cfg)
+        paths[key] = wep["counts"]
+        phase_wep_bank_share(torch, key, cfg, wep)
+        del wep
+    phase_refine_chip(torch, gun)
     if args.profile:
-        phase_profile(torch, args.profile)
-    gun = rows[0]
+        phase_profile(torch, args.profile, "gun_like",
+                      lambda: nep_gallery("gun_like", device=DEVICE), SIGMA,
+                      GAMMA, 60, 10, 1e-6)
+        stem, dot, ext = args.profile.rpartition(".")
+        phase_profile(torch, f"{stem}.wep{dot}{ext}" if dot else
+                      args.profile + ".wep", "wep", lambda: wep_nep(WEP),
+                      WEP["sigmas"][0], 1.0, 100, 8, 1e-5)
     print(f"[done] total {time.perf_counter() - t0:.3f} s", flush=True)
-    print(json.dumps({"kernels": [{
-        "name": "dia_lincomb",
-        "route": "cuda",
-        "source": "neptpu_torch/csrc/dia_spmv.cu",
-        "replaces": "neptpu/ops/pallas_spmv.py:76",
-        "launches": launches,
-        "max_abs_err": gun["max_abs_err"],
-        "ms": gun["ms"],
-        "plain_ms": gun["plain_ms"],
-    }]}), flush=True)
+
+    kernels = []
+    # each kernel at the shape the main path hands it: the single-operand
+    # kernel at the SpMV headline, the pair kernel at the waveguide bank
+    for name, row in (("dia_lincomb", rows["headline f32"]),
+                      ("dia_lincomb_pair", rows["wep f32 pair"])):
+        by_path = {k: c[name] for k, c in paths.items()}
+        check(sum(by_path.values()) > 0,
+              f"kernel {name} was launched on no main path")
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "neptpu_torch/csrc/dia_spmv.cu",
+            "replaces": "neptpu/ops/pallas_spmv.py:76",
+            "launches": sum(by_path.values()),
+            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            "shape": f"{row['shape']} n={row['n']} m={row['m']} "
+                     f"ndiag={row['ndiag']}",
+            "launches_by_path": by_path})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -1,11 +1,14 @@
 """neptpu_torch — the PyTorch/CUDA port of neptpu's main eigensolver path.
 
-A second package beside the JAX reference ``neptpu``: the gun-class SPMF
-(host-built problem -> mixed term bank -> partitioned SPIKE + SMW shifted
-factorization -> complex-as-real IAR scan -> host Newton refinement), with
-the stacked-DIA fused multi-term SpMV as a hand-written sm_90a CUDA kernel
-(``csrc/dia_spmv.cu``).  It imports torch, numpy and scipy — never jax or
-neptpu.  Entry points take an explicit ``device=``.
+A second package beside the JAX reference ``neptpu``: the gun-class and
+waveguide SPMFs (host-built problem -> mixed term bank -> partitioned
+SPIKE + SMW shifted factorization -> complex-as-real IAR scan from one shift
+or several -> Newton refinement on the host or, batched over shifts, on the
+device), with the stacked-DIA fused multi-term SpMV as hand-written sm_90a
+CUDA kernels (``csrc/dia_spmv.cu``: one operand, or a re/im pair in one
+launch).  It imports torch, numpy and scipy — never jax or neptpu.  Entry
+points run on the card unless the caller passes ``device="cpu"``
+(``config.default_device``).
 """
 from . import config  # noqa: F401  (switches TF32 off)
 from .core.nep import (NEP, compute_Mder, compute_Mlincomb, compute_MM,
@@ -15,7 +18,7 @@ from .models.pep import PEP
 from .models.spmf import AbstractSPMF, SPMF_NEP
 from .models.sumnep import GenericSumNEP, SPMFSumNEP, SumNEP
 from .ops import matfun
-from .solvers.refine import newton_refine
+from .solvers.refine import newton_refine, resinv_refine
 from .solvers.spmf_real import iar_real_spmf, iar_real_spmf_multishift
 
 __all__ = [
@@ -33,6 +36,7 @@ __all__ = [
     "SumNEP",
     "matfun",
     "newton_refine",
+    "resinv_refine",
     "iar_real_spmf",
     "iar_real_spmf_multishift",
 ]

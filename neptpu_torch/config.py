@@ -1,7 +1,9 @@
-"""Dtype policy and matmul precision for the PyTorch port.
+"""Dtype and device policy and matmul precision for the PyTorch port.
 
-Every solver takes an explicit ``dtype`` and ``device``; nothing here changes
-PyTorch's global default dtype.  Float32 products on an NVIDIA card must run
+Every solver takes an explicit ``dtype``; nothing here changes PyTorch's
+global default dtype.  ``device=None`` at an entry point means the card
+(:func:`default_device`), or the device of a bank or tensor the caller handed
+in; a CPU run asks for ``device="cpu"``.  Float32 products on an NVIDIA card must run
 in full float32: TF32 keeps about three decimal digits and raises the Krylov
 noise floor the same way the TPU's single-pass bf16 products did (the JAX
 package asks for ``precision="highest"`` there).  So TF32 is switched off for
@@ -16,6 +18,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __all__ = [
+    "default_device",
+    "resolve_device",
     "default_real",
     "default_complex",
     "complex_of",
@@ -35,6 +39,26 @@ _NP_TO_TORCH = {
     np.dtype(np.int64): torch.int64,
 }
 _TORCH_TO_NP = {v: k for k, v in _NP_TO_TORCH.items()}
+
+
+def default_device():
+    """The device of an entry point called with ``device=None``: the card.
+    Without one this raises — the port never moves to the CPU on its own."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "neptpu_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run on the CPU")
+    return torch.device("cuda")
+
+
+def resolve_device(device=None, like=None):
+    """``device`` if given, else the device of ``like`` (a tensor, a term
+    bank or a solver exposing ``.device``) if given, else the card."""
+    if device is not None:
+        return torch.device(device)
+    if like is not None:
+        return torch.device(like.device)
+    return default_device()
 
 
 def default_real():

@@ -6,7 +6,8 @@ numpy, that is a *spec* triple ``(kind, leaves, aux)``: ``kind`` the class
 name, ``leaves`` a list whose entries are numpy arrays, ``None``, tuples of
 those, or nested spec triples.  The functions below rebuild the port's
 objects from such specs so that both packages compute from identical
-operands and identical state.  (Pivots: the JAX package stores 0-based LU
+operands and identical state.  ``device=None`` is the card, as everywhere in
+the port.  (Pivots: the JAX package stores 0-based LU
 pivots, ``torch.linalg`` 1-based ones.)
 """
 from __future__ import annotations
@@ -14,14 +15,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .ops.dia import DiaTermBank
 from .ops.mixed import MixedTermBank
-from .ops.partitioned import (BlockTridiagSolver, InterleavedSMW,
-                              PartitionedBandedSolver)
+from .ops.partitioned import (BatchedShiftSMW, BlockTridiagSolver,
+                              InterleavedSMW, PartitionedBandedSolver)
 from .ops.sparse import DenseTermBank, SparseTermBank
 from .solvers.iar_real import DenseBlockLU
 
-__all__ = ["bank_from_arrays", "shift_solver_from_arrays", "carry_from_arrays"]
+__all__ = ["bank_from_arrays", "shift_solver_from_arrays",
+           "batched_shift_solver_from_arrays", "carry_from_arrays"]
 
 
 def _t(x, device, dtype=None):
@@ -39,6 +42,7 @@ def _pivots(piv, device):
 def bank_from_arrays(spec, device=None):
     """A term bank from the spec of a JAX ``DiaTermBank``,
     ``SparseTermBank``, ``DenseTermBank`` or ``MixedTermBank``."""
+    device = resolve_device(device)
     kind, leaves, aux = spec
     if kind == "DiaTermBank":
         data, fro = leaves
@@ -68,6 +72,7 @@ def bank_from_arrays(spec, device=None):
 def shift_solver_from_arrays(spec, device=None):
     """A shifted solver from the spec of a JAX ``InterleavedSMW``,
     ``PartitionedBandedSolver``, ``BlockTridiagSolver`` or ``DenseBlockLU``."""
+    device = resolve_device(device)
     kind, leaves, aux = spec
     if kind == "InterleavedSMW":
         base, X, Uh, Lh, K_fac, K_piv = leaves
@@ -103,8 +108,51 @@ def shift_solver_from_arrays(spec, device=None):
     raise ValueError(f"unknown solver kind {kind!r}")
 
 
+def batched_shift_solver_from_arrays(state, device=None):
+    """A :class:`BatchedShiftSMW` from the attributes of the JAX package's
+    (``vars(obj)`` with every array as numpy): the factors of all shifts with
+    their leading shift axis, so both packages solve from identical state.
+    Reads the mixed-precision layout when ``state["ir"]`` is set, else the
+    plain one."""
+    device = resolve_device(device)
+    offsets, p, blk, b, n2, mode = state["aux"]
+    obj = BatchedShiftSMW.__new__(BatchedShiftSMW)
+    obj.aux = (tuple(int(o) for o in offsets), p, blk, b, n2, mode)
+    obj.ir, obj.refine = int(state["ir"]), int(state["refine"])
+    obj.n, obj.S_real = int(state["n"]), int(state["S_real"])
+    obj.device, obj.timings = device, {}
+    if mode == "lu":
+        piv = _pivots(state["piv"], device)
+        r_piv = _pivots(state["r_piv"], device)
+    else:
+        piv = _t(state["piv"], device, torch.int32)
+        r_piv = _t(state["r_piv"], device, torch.int32)
+    DBC = (tuple(_t(x, device) for x in state["DBC"]) if not obj.ir
+           else (None, None, None))
+    base = PartitionedBandedSolver.from_factors(
+        _t(state["fac"], device), piv, _t(state["V"], device),
+        _t(state["W"], device), _t(state["r_fac"], device), r_piv,
+        _t(state["strips_b"], device), DBC, *obj.aux)
+    if obj.ir:
+        obj.base = base
+        obj.btdims = tuple(int(x) for x in state["btdims"])
+        for name, key in (("D64", "D64"), ("B64", "B64"), ("C64", "C64"),
+                          ("X64", "X64"), ("Kinv64", "Kinv64"),
+                          ("Lh64", "Ltil64"), ("Uh64", "Util64")):
+            setattr(obj, name, _t(state[key], device, torch.float64))
+        return obj
+    K_piv = (_pivots(state["K_piv"], device) if mode == "lu"
+             else _t(state["K_piv"], device, torch.int32))
+    obj.smw = InterleavedSMW.from_factors(
+        base, _t(state["X"], device), _t(state["Util_b"], device),
+        _t(state["Ltil_b"], device), _t(state["K_fac"], device), K_piv, mode,
+        obj.refine)
+    return obj
+
+
 def carry_from_arrays(Vre, Vim, Hre, Him, device=None):
     """An IAR scan carry ``(Vre, Vim, Hre, Him)`` from numpy arrays (fresh
     tensors: the port's scan updates its carry in place)."""
+    device = resolve_device(device)
     return tuple(torch.tensor(np.asarray(x), device=device)
                  for x in (Vre, Vim, Hre, Him))

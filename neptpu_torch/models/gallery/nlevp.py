@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ...config import resolve_device
 from ...ops import matfun
 from ..pep import PEP
 from ..spmf import SPMF_NEP
@@ -52,6 +53,7 @@ def gun_like(n=None, seed=0, device=None):
     numpy from ``seed``)."""
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     try:
         W1 = _load("converted_nlevp/gun_W1.txt")
         W2 = _load("converted_nlevp/gun_W2.txt")

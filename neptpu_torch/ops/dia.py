@@ -12,8 +12,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import real_of, to_numpy_dtype
-from .dia_kernel import dia_lincomb, dia_lincomb_plain, shifted_rows
+from ..config import resolve_device, to_numpy_dtype
+from .dia_kernel import (dia_lincomb, dia_lincomb_pair,
+                         dia_lincomb_pair_plain, dia_lincomb_plain,
+                         shifted_rows)
 
 __all__ = ["DiaTermBank"]
 
@@ -22,7 +24,7 @@ class DiaTermBank:
     is_sparse = True
 
     def __init__(self, data, offsets, shape, fro_norms=None, host_data=None):
-        self.data = data  # (m, ndiag, n)
+        self.data = data.contiguous()  # (m, ndiag, n)
         self.offsets = tuple(int(o) for o in offsets)
         self.shape = tuple(shape)
         if fro_norms is None:
@@ -57,6 +59,7 @@ class DiaTermBank:
     def from_matrices(cls, mats, dtype=None, device=None):
         import scipy.sparse as sp
 
+        device = resolve_device(device)
         mats = [sp.csr_matrix(A) if not sp.issparse(A) else A.tocsr()
                 for A in mats]
         n = mats[0].shape[0]
@@ -103,23 +106,47 @@ class DiaTermBank:
                 shape=(n, n)))
         return out
 
+    def _kernel_data(self, dt):
+        """The bank's values for a kernel launch in ``dt``: the stored tensor
+        itself when the dtype matches (the scan's case — no copy per call),
+        else a converted copy."""
+        if self.data.dtype == dt:
+            return self.data  # contiguous since __init__
+        return self.data.to(dt).contiguous()
+
     def lincomb_apply(self, W):
         """``y = sum_i A_i @ W[:, i]``.
 
         A CPU tensor takes the plain twin; any other device launches the CUDA
         kernel (which raises on what it does not take).  The bank's data is
-        real, so a complex ``W`` on the card is two real kernel calls."""
+        real, so a complex ``W`` is the pair apply of its re and im parts
+        (one kernel launch on the card)."""
         dt = torch.promote_types(W.dtype, self.data.dtype)
+        if dt.is_complex:
+            Wc = W.to(dt)
+            yre, yim = self.lincomb_apply_pair(Wc.real, Wc.imag)
+            return torch.complex(yre, yim)
         if W.device.type == "cpu":
             return dia_lincomb_plain(self.data.to(dt), self.offsets, W.to(dt))
-        if dt.is_complex:
-            data = self.data.to(real_of(dt)).contiguous()
-            Wc = W.to(dt)
-            yre = dia_lincomb(data, self.offsets_dev, Wc.real.contiguous())
-            yim = dia_lincomb(data, self.offsets_dev, Wc.imag.contiguous())
-            return torch.complex(yre, yim)
-        return dia_lincomb(self.data.to(dt).contiguous(), self.offsets_dev,
+        return dia_lincomb(self._kernel_data(dt), self.offsets_dev,
                            W.to(dt).contiguous())
+
+    def lincomb_apply_pair(self, Wre, Wim):
+        """``(sum_i A_i @ Wre[:, i], sum_i A_i @ Wim[:, i])`` for a real
+        operand pair — the re/im channels of the complex-as-real scan.  On the
+        card this is ONE kernel launch that reads the bank once; on the CPU
+        the plain twin."""
+        dt = torch.promote_types(torch.promote_types(Wre.dtype, Wim.dtype),
+                                 self.data.dtype)
+        if dt.is_complex:
+            raise TypeError("lincomb_apply_pair takes real re/im channels, "
+                            f"got {Wre.dtype} and {Wim.dtype}")
+        if Wre.device.type == "cpu":
+            return dia_lincomb_pair_plain(self.data.to(dt), self.offsets,
+                                          Wre.to(dt), Wim.to(dt))
+        return dia_lincomb_pair(self._kernel_data(dt), self.offsets_dev,
+                                Wre.to(dt).contiguous(),
+                                Wim.to(dt).contiguous())
 
     def combine(self, w):
         """``sum_i w_i A_i`` as a new single-term bank."""

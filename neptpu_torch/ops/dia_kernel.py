@@ -4,8 +4,10 @@
 
 (W read as zero outside ``[0, n)``).  ``dia_lincomb`` launches the sm_90a
 kernel in ``neptpu_torch/csrc/dia_spmv.cu`` (the port of the TPU kernel
-``neptpu/ops/pallas_spmv.py``); ``dia_lincomb_plain`` is its plain PyTorch
-twin, the CPU path and the kernel's test oracle.  The kernel is compiled by
+``neptpu/ops/pallas_spmv.py``); ``dia_lincomb_pair`` applies one bank to a
+re/im operand pair in a single launch that reads the bank once.
+``dia_lincomb_plain`` and ``dia_lincomb_pair_plain`` are their plain PyTorch
+twins, the CPU path and the kernels' test oracle.  The kernel is compiled by
 ``nvcc`` on first use into ``neptpu_torch/_build/`` (file name keyed by the
 source's content hash) and bound through ``ctypes`` with a plain C interface.
 Nothing here imports or builds anything at module import time.
@@ -25,7 +27,10 @@ import torch
 __all__ = [
     "DIA_SPMV",
     "dia_lincomb",
+    "dia_lincomb_pair",
     "dia_lincomb_plain",
+    "dia_lincomb_pair_plain",
+    "empty_launch",
     "shifted_rows",
     "build_kernel",
 ]
@@ -52,17 +57,27 @@ def _find_nvcc():
 class KernelLibrary:
     """One CUDA source built into a shared library on first use.
 
-    ``launches`` counts kernel launches made through the wrapper (and only
-    there); ``build_seconds`` and ``build_log`` record the last build."""
+    ``counts`` holds, per wrapper, the kernel launches made through it (and
+    only there); ``launches`` is their sum.  ``build_seconds`` and
+    ``build_log`` record the last build."""
 
     def __init__(self, name, source):
         self.name = name
         self.source = source
-        self.launches = 0
+        self.counts = {"dia_lincomb": 0, "dia_lincomb_pair": 0}
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
+        self._fns = {}  # (entry, dtype) -> bound ctypes function
         self._lock = threading.Lock()
+
+    @property
+    def launches(self):
+        return sum(self.counts.values())
+
+    def reset_counts(self):
+        for key in self.counts:
+            self.counts[key] = 0
 
     def library_path(self):
         with open(self.source, "rb") as fh:
@@ -78,16 +93,37 @@ class KernelLibrary:
             if not os.path.exists(path):
                 self._build(path)
             lib = ctypes.CDLL(path)
+            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
             for fn in (lib.dia_lincomb_f32, lib.dia_lincomb_f64):
-                fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_void_p, ctypes.c_void_p,
-                               ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_void_p]
-                fn.restype = ctypes.c_int
-            lib.dia_error_string.argtypes = [ctypes.c_int]
+                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+                fn.restype = i32
+            for fn in (lib.dia_lincomb_pair_f32, lib.dia_lincomb_pair_f64):
+                fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
+                               ptr]
+                fn.restype = i32
+            lib.dia_noop.argtypes = [ptr]
+            lib.dia_noop.restype = i32
+            lib.dia_error_string.argtypes = [i32]
             lib.dia_error_string.restype = ctypes.c_char_p
             self._lib = lib
             return lib
+
+    def function(self, entry, dtype):
+        """The bound C entry point ``<entry>_f32``/``_f64``, looked up once
+        per dtype."""
+        fn = self._fns.get((entry, dtype))
+        if fn is None:
+            suffix = "f32" if dtype == torch.float32 else "f64"
+            fn = getattr(self.load(), f"{entry}_{suffix}")
+            self._fns[(entry, dtype)] = fn
+        return fn
+
+    def check(self, rc, what):
+        """Raise on a non-zero ``cudaGetLastError()`` of a launch."""
+        if rc != 0:
+            raise RuntimeError(
+                f"{what} kernel launch failed: "
+                f"{self.load().dia_error_string(rc).decode()} ({rc})")
 
     def _build(self, path):
         import time
@@ -114,47 +150,93 @@ def build_kernel():
     return DIA_SPMV.load()
 
 
+_KERNEL_DTYPES = (torch.float32, torch.float64)
+
+
+def _check_operands(what, data, offsets_dev, operands):
+    """Raise on anything the kernels do not take; returns ``(m, ndiag, n)``.
+    ``operands``: ``(name, tensor)`` pairs, each an ``(n, m)`` operand."""
+    dev, dt = data.device, data.dtype
+    for name, t in (("data", data), ("offsets", offsets_dev)) + operands:
+        if t.device != dev or dev.type != "cuda":
+            if t.device.type != "cuda":
+                raise ValueError(f"{what} kernel needs CUDA tensors; {name} "
+                                 f"is on {t.device}")
+            raise ValueError(f"{what}: data, offsets and operands on "
+                             "different devices")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs contiguous {name}")
+    if dt not in _KERNEL_DTYPES or offsets_dev.dtype != torch.int32:
+        raise TypeError(f"{what} kernel takes float32 or float64 data with "
+                        f"int32 offsets, got {dt} and {offsets_dev.dtype}")
+    if data.ndim != 3 or offsets_dev.ndim != 1:
+        raise ValueError(f"{what}: data (m, ndiag, n), offsets (ndiag,)")
+    m, ndiag, n = data.shape
+    if offsets_dev.shape[0] != ndiag:
+        raise ValueError(f"{what}: {offsets_dev.shape[0]} offsets for "
+                         f"{ndiag} diagonals")
+    for name, W in operands:
+        if W.dtype != dt:
+            raise TypeError(f"{what} kernel takes data and operands of one "
+                            f"dtype, got {dt} and {W.dtype} ({name})")
+        if W.shape != (n, m):
+            raise ValueError(f"{what}: {name} has shape {tuple(W.shape)}, "
+                             f"data {tuple(data.shape)} needs ({n}, {m})")
+    return m, ndiag, n
+
+
+def _on_stream(device, call):
+    """``call(raw_stream)`` with ``device`` current, on its current stream;
+    the current device is switched only when it is another one."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return call(torch.cuda.current_stream(device).cuda_stream)
+    with torch.cuda.device(device):
+        return call(torch.cuda.current_stream(device).cuda_stream)
+
+
 def dia_lincomb(data, offsets_dev, W):
     """Launch the CUDA kernel: ``data (m, ndiag, n)``, ``offsets_dev (ndiag,)``
     int32, ``W (n, m)``, all contiguous on one CUDA device, float32 or float64
     (one dtype).  Returns ``y (n,)``.  Raises on anything the kernel does not
     take — there is no fallback to the plain twin."""
-    for name, t in (("data", data), ("offsets", offsets_dev), ("W", W)):
-        if t.device.type != "cuda":
-            raise ValueError(f"dia_lincomb kernel needs CUDA tensors; {name} "
-                             f"is on {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"dia_lincomb kernel needs contiguous {name}")
-    if not (data.device == offsets_dev.device == W.device):
-        raise ValueError("dia_lincomb: data, offsets and W on different "
-                         "devices")
-    if (data.dtype not in (torch.float32, torch.float64)
-            or W.dtype != data.dtype):
-        raise TypeError(f"dia_lincomb kernel takes float32 or float64 data "
-                        f"and W of one dtype, got {data.dtype} and {W.dtype}")
-    if offsets_dev.dtype != torch.int32:
-        raise TypeError("dia_lincomb kernel needs int32 offsets")
-    if data.ndim != 3 or W.ndim != 2 or offsets_dev.ndim != 1:
-        raise ValueError("dia_lincomb: data (m, ndiag, n), W (n, m), offsets "
-                         "(ndiag,)")
-    m, ndiag, n = data.shape
-    if tuple(W.shape) != (n, m) or offsets_dev.shape[0] != ndiag:
-        raise ValueError(f"dia_lincomb: shapes data {tuple(data.shape)}, "
-                         f"W {tuple(W.shape)}, offsets "
-                         f"{tuple(offsets_dev.shape)} do not match")
-    lib = DIA_SPMV.load()
-    fn = (lib.dia_lincomb_f32 if data.dtype == torch.float32
-          else lib.dia_lincomb_f64)
+    m, ndiag, n = _check_operands("dia_lincomb", data, offsets_dev,
+                                  (("W", W),))
+    fn = DIA_SPMV.function("dia_lincomb", data.dtype)
     y = torch.empty(n, dtype=data.dtype, device=data.device)
-    with torch.cuda.device(data.device):
-        stream = torch.cuda.current_stream(data.device).cuda_stream
-        rc = fn(data.data_ptr(), offsets_dev.data_ptr(), W.data_ptr(),
-                y.data_ptr(), n, m, ndiag, stream)
-    if rc != 0:
-        raise RuntimeError(f"dia_lincomb kernel launch failed: "
-                           f"{lib.dia_error_string(rc).decode()} ({rc})")
-    DIA_SPMV.launches += 1
+    rc = _on_stream(data.device, lambda stream: fn(
+        data.data_ptr(), offsets_dev.data_ptr(), W.data_ptr(), y.data_ptr(),
+        n, m, ndiag, stream))
+    DIA_SPMV.check(rc, "dia_lincomb")
+    DIA_SPMV.counts["dia_lincomb"] += 1
     return y
+
+
+def dia_lincomb_pair(data, offsets_dev, Wre, Wim):
+    """One launch for an operand pair: ``(yre, yim)`` with ``yre`` the fused
+    apply of the bank to ``Wre`` and ``yim`` to ``Wim`` (both ``(n, m)``), the
+    bank read once.  Same contract and refusals as :func:`dia_lincomb`; the
+    results equal two single launches bit for bit."""
+    m, ndiag, n = _check_operands("dia_lincomb_pair", data, offsets_dev,
+                                  (("Wre", Wre), ("Wim", Wim)))
+    fn = DIA_SPMV.function("dia_lincomb_pair", data.dtype)
+    y = torch.empty((2, n), dtype=data.dtype, device=data.device)
+    yre_ptr = y.data_ptr()
+    rc = _on_stream(data.device, lambda stream: fn(
+        data.data_ptr(), offsets_dev.data_ptr(), Wre.data_ptr(),
+        Wim.data_ptr(), yre_ptr, yre_ptr + n * y.element_size(), n, m, ndiag,
+        stream))
+    DIA_SPMV.check(rc, "dia_lincomb_pair")
+    DIA_SPMV.counts["dia_lincomb_pair"] += 1
+    return y[0], y[1]
+
+
+def empty_launch(device):
+    """Launch the library's empty kernel on ``device``'s current stream (the
+    launch floor every call pays; counted nowhere)."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"empty_launch needs a CUDA device, got {device}")
+    DIA_SPMV.check(_on_stream(device, DIA_SPMV.load().dia_noop), "dia_noop")
 
 
 def shifted_rows(X, off):
@@ -189,3 +271,9 @@ def dia_lincomb_plain(data, offsets, W):
            + torch.as_tensor(offs + lo, device=W.device)[None, :])
     G = Wp[idx]  # (n, ndiag, m)
     return torch.einsum("idr,rdi->r", data, G)
+
+
+def dia_lincomb_pair_plain(data, offsets, Wre, Wim):
+    """Plain PyTorch twin of :func:`dia_lincomb_pair`: two plain applies."""
+    return (dia_lincomb_plain(data, offsets, Wre),
+            dia_lincomb_plain(data, offsets, Wim))

@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import to_numpy_dtype, to_torch_dtype
+from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
 
 __all__ = ["MixedTermBank", "make_mixed_bank"]
 
@@ -65,9 +65,7 @@ class MixedTermBank:
 
     @property
     def device(self):
-        inner = self.inner
-        t = inner.A if hasattr(inner, "A") else inner.data
-        return t.device
+        return self.inner.device
 
     @staticmethod
     def _group_apply(L, U, tidx, W):
@@ -79,10 +77,18 @@ class MixedTermBank:
             W = W[:, self._sel]
         return self.inner.lincomb_apply(W)
 
+    def _main_pair(self, Wre, Wim):
+        """The main bank applied to both channels: one pair launch on a DIA
+        bank, two applies on a CSR or dense one."""
+        if not self._identity:
+            Wre, Wim = Wre[:, self._sel], Wim[:, self._sel]
+        if hasattr(self.inner, "lincomb_apply_pair"):
+            return self.inner.lincomb_apply_pair(Wre, Wim)
+        return self.inner.lincomb_apply(Wre), self.inner.lincomb_apply(Wim)
+
     def lincomb_apply_split(self, Wre, Wim):
         """(yre, yim) = re/im of ``sum_i A_i (Wre + i Wim)[:, i]``."""
-        yre = self._main(Wre)
-        yim = self._main(Wim)
+        yre, yim = self._main_pair(Wre, Wim)
         if self.Lr is not None:
             yre = yre + self._group_apply(self.Lr, self.Ur, self._tr, Wre)
             yim = yim + self._group_apply(self.Lr, self.Ur, self._tr, Wim)
@@ -128,12 +134,14 @@ def make_mixed_bank(mats, dtype=None, max_rank=None, fmt=None, device=None):
 
     A term's real part goes low-rank when min(#nonzero rows, #nonzero cols)
     is at most ``max_rank`` (default ``max(32, n // 64)``); imaginary parts
-    must be low-rank (the main bank is real)."""
+    must be low-rank (the main bank is real).  ``device=None`` is the card
+    (``config.default_device``)."""
     import scipy.sparse as sp
 
     from ..models.lowrank import low_rank_factors
     from .sparse import make_term_bank
 
+    device = resolve_device(device)
     seq = [sp.csr_matrix(A) if not sp.issparse(A) else A.tocsr() for A in mats]
     n = seq[0].shape[0]
     if max_rank is None:

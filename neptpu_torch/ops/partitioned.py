@@ -30,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import to_numpy_dtype, to_torch_dtype
+from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
 
 __all__ = [
     "csr_to_strips",
@@ -44,6 +44,9 @@ __all__ = [
     "assemble_shift_parts",
     "build_spmf_shift_solver",
     "ShiftPlan",
+    "BatchedShiftSMW",
+    "BATCH_SIZES",
+    "canonical_batch",
     "arrow_split",
     "band_border_split",
 ]
@@ -72,13 +75,20 @@ def deinterleave_pair(x):
     return x2[:, 0], x2[:, 1]
 
 
-def rot_i(x):
-    """Row-interleaved real form of multiplication by ``i``.  The interleaved
-    form of any complex-linear operator (the banded bulk, its inverse, the SMW
-    correction) commutes with this map, which lets every tall-skinny SMW
-    operand carry R columns instead of 2R."""
-    x2 = x.reshape((-1, 2) + tuple(x.shape[1:]))
-    return torch.stack([-x2[:, 1], x2[:, 0]], dim=1).reshape(x.shape)
+def rot_i(x, dim=0):
+    """Row-interleaved real form of multiplication by ``i`` along the row
+    axis ``dim``.  The interleaved form of any complex-linear operator (the
+    banded bulk, its inverse, the SMW correction) commutes with this map,
+    which lets every tall-skinny SMW operand carry R columns instead of 2R."""
+    dim = dim % x.ndim
+    x2 = x.unflatten(dim, (-1, 2))
+    return torch.stack([-x2.select(dim + 1, 1), x2.select(dim + 1, 0)],
+                       dim=dim + 1).reshape(x.shape)
+
+
+def _rows_rot_i(x):
+    """:func:`rot_i` over the rows of ``(..., rows, k)`` operands."""
+    return rot_i(x, dim=-2)
 
 
 def complex_lowrank_to_half(Lc, Uc):
@@ -125,13 +135,14 @@ def _block_index_lists(offsets, blk, b):
 
 
 def _assemble_DBC(strips, offsets, nblk, blk, b, bcols):
-    """strips (ndiag, nblk*blk) -> block form D (nblk, blk, blk) and the
-    couplings B/C (nblk, blk, bcols).  One scatter per block kind over host
-    index lists (the (row, col) pairs are distinct, so assignment into zeros
-    is the sum).  Strip convention: strip[j, r] = A[r, r + off_j], r the
-    local row."""
+    """strips (..., ndiag, nblk*blk) -> block form D (..., nblk, blk, blk)
+    and the couplings B/C (..., nblk, blk, bcols); leading axes (a batch of
+    shifts) pass through.  One scatter per block kind over host index lists
+    (the (row, col) pairs are distinct, so assignment into zeros is the sum).
+    Strip convention: strip[j, r] = A[r, r + off_j], r the local row."""
     dev = strips.device
-    s = strips.reshape(len(offsets), nblk, blk).permute(1, 0, 2)
+    lead = tuple(strips.shape[:-2])
+    s = strips.reshape(lead + (len(offsets), nblk, blk)).movedim(-3, -2)
     out = []
     for (rows, cols, jj), shape in zip(_block_index_lists(offsets, blk, b),
                                        ((blk, blk), (blk, bcols),
@@ -139,44 +150,47 @@ def _assemble_DBC(strips, offsets, nblk, blk, b, bcols):
         rows = torch.as_tensor(rows, device=dev)
         cols = torch.as_tensor(cols, device=dev)
         jj = torch.as_tensor(jj, device=dev)
-        M = torch.zeros((nblk,) + shape, dtype=strips.dtype, device=dev)
-        M[:, rows, cols] = s[:, jj, rows]
+        M = torch.zeros(lead + (nblk,) + shape, dtype=strips.dtype,
+                        device=dev)
+        M[..., rows, cols] = s[..., jj, rows]
         out.append(M)
     D, B, C = out
-    B[-1] = 0.0
-    C[0] = 0.0
+    B[..., -1, :, :] = 0.0
+    C[..., 0, :, :] = 0.0
     return D, B, C
 
 
 def _factor_partitioned(strips, offsets, p, blk, b, mode):
-    """strips (ndiag, p*blk) -> per-partition factors, spikes and the
-    factored reduced system; all partitions factored in one batch."""
+    """strips (..., ndiag, p*blk) -> per-partition factors, spikes and the
+    factored reduced system; all partitions (and all leading shifts)
+    factored in one batch."""
     dt, dev = strips.dtype, strips.device
+    lead = tuple(strips.shape[:-2])
     D, B, C = _assemble_DBC(strips, offsets, p, blk, b, b)
-    BC = torch.cat([B, C], dim=2)
+    BC = torch.cat([B, C], dim=-1)
     if mode == "inv":
         fac = torch.linalg.inv(D)  # batched; the hot-path solve is pure GEMM
-        piv = torch.zeros((p, blk), dtype=torch.int32, device=dev)
+        piv = torch.zeros(lead + (p, blk), dtype=torch.int32, device=dev)
         VW = fac @ BC
     else:
         fac, piv = torch.linalg.lu_factor(D)
         VW = torch.linalg.lu_solve(fac, piv, BC)
-    V, W = VW[:, :, :b].contiguous(), VW[:, :, b:].contiguous()
+    V, W = VW[..., :b].contiguous(), VW[..., b:].contiguous()
 
     # reduced system over the spike boundary rows (2 b p)
     m = 2 * b * p
-    R = torch.eye(m, dtype=dt, device=dev)
+    R = torch.eye(m, dtype=dt, device=dev).expand(lead + (m, m)).clone()
     for d in range(p):
         t = 2 * b * d
         if d > 0:
-            R[t:t + b, t - b:t] += W[d, :b]
-            R[t + b:t + 2 * b, t - b:t] += W[d, -b:]
+            R[..., t:t + b, t - b:t] += W[..., d, :b, :]
+            R[..., t + b:t + 2 * b, t - b:t] += W[..., d, -b:, :]
         if d < p - 1:
-            R[t:t + b, t + 2 * b:t + 3 * b] += V[d, :b]
-            R[t + b:t + 2 * b, t + 2 * b:t + 3 * b] += V[d, -b:]
+            R[..., t:t + b, t + 2 * b:t + 3 * b] += V[..., d, :b, :]
+            R[..., t + b:t + 2 * b, t + 2 * b:t + 3 * b] += V[..., d, -b:, :]
     if mode == "inv":
         r_fac = torch.linalg.inv(R)
-        r_piv = torch.zeros(m, dtype=torch.int32, device=dev)
+        r_piv = torch.zeros(lead + (m,), dtype=torch.int32, device=dev)
     else:
         r_fac, r_piv = torch.linalg.lu_factor(R)
     return fac, piv, V, W, r_fac, r_piv, (D, B, C)
@@ -220,7 +234,7 @@ class PartitionedBandedSolver:
         self.offsets, self.p, self.blk, self.b, self.n = offsets, p, blk, b, n
         self.mode = mode
         self.strips = torch.from_numpy(
-            _pad_strips(strips, offsets, p * blk)).to(device)
+            _pad_strips(strips, offsets, p * blk)).to(resolve_device(device))
         (self.fac, self.piv, self.V, self.W, self.r_fac, self.r_piv,
          self.DBC) = _factor_partitioned(self.strips, offsets, p, blk, b, mode)
 
@@ -237,18 +251,19 @@ class PartitionedBandedSolver:
 
     def matvec(self, x):
         """y = B x through the block form: three batched GEMMs (couplings
-        reach only the adjacent partitions since b <= blk)."""
+        reach only the adjacent partitions since b <= blk).  x: (n,), (n, k),
+        or (..., n, k) against factors with leading shift axes."""
         p, blk, b, n = self.p, self.blk, self.b, self.n
         D, B, C = self.DBC
         x, one_d = _as_cols(x)
-        k = x.shape[1]
-        xp = torch.zeros((p * blk, k), dtype=x.dtype, device=x.device)
-        xp[:n] = x[:n]
-        xb = xp.reshape(p, blk, k)
+        lead, k = tuple(x.shape[:-2]), x.shape[-1]
+        xp = torch.zeros(lead + (p * blk, k), dtype=x.dtype, device=x.device)
+        xp[..., :n, :] = x[..., :n, :]
+        xb = xp.reshape(lead + (p, blk, k))
         y = D @ xb
-        y[:-1] += B[:-1] @ xb[1:, :b]
-        y[1:] += C[1:] @ xb[:-1, blk - b:]
-        y = y.reshape(p * blk, k)[:n]
+        y[..., :-1, :, :] += B[..., :-1, :, :] @ xb[..., 1:, :b, :]
+        y[..., 1:, :, :] += C[..., 1:, :, :] @ xb[..., :-1, blk - b:, :]
+        y = y.reshape(lead + (p * blk, k))[..., :n, :]
         return y[:, 0] if one_d else y
 
     def _local(self, f):
@@ -263,22 +278,24 @@ class PartitionedBandedSolver:
         return torch.linalg.lu_solve(self.r_fac, self.r_piv, rhs)
 
     def solve(self, f):
-        """f: (n,) or (n, k) -> solution of the banded system."""
+        """f: (n,) or (n, k) -> solution of the banded system; (..., n, k)
+        against factors with leading shift axes (one system per shift)."""
         p, blk, b, n = self.p, self.blk, self.b, self.n
         f, one_d = _as_cols(f)
-        k = f.shape[1]
-        fp = torch.zeros((p * blk, k), dtype=f.dtype, device=f.device)
-        fp[:n] = f
-        g = self._local(fp.reshape(p, blk, k))
+        lead, k = tuple(f.shape[:-2]), f.shape[-1]
+        fp = torch.zeros(lead + (p * blk, k), dtype=f.dtype, device=f.device)
+        fp[..., :n, :] = f
+        g = self._local(fp.reshape(lead + (p, blk, k)))
         # reduced RHS: top/bottom b rows of every partition, interleaved
-        rhs = torch.cat([g[:, :b], g[:, -b:]], dim=1)  # (p, 2b, k)
-        u = self._reduced(rhs.reshape(p * 2 * b, k)).reshape(p, 2 * b, k)
+        rhs = torch.cat([g[..., :b, :], g[..., -b:, :]], dim=-2)  # (p, 2b, k)
+        u = self._reduced(rhs.reshape(lead + (p * 2 * b, k))).reshape(
+            lead + (p, 2 * b, k))
         # corrections: x_d = g_d - W_d @ xb_{d-1} - V_d @ xt_{d+1}
-        zero = torch.zeros((1, b, k), dtype=f.dtype, device=f.device)
-        xb_prev = torch.cat([zero, u[:-1, b:]], dim=0)
-        xt_next = torch.cat([u[1:, :b], zero], dim=0)
+        zero = torch.zeros(lead + (1, b, k), dtype=f.dtype, device=f.device)
+        xb_prev = torch.cat([zero, u[..., :-1, b:, :]], dim=-3)
+        xt_next = torch.cat([u[..., 1:, :b, :], zero], dim=-3)
         x = g - self.W @ xb_prev - self.V @ xt_next
-        x = x.reshape(p * blk, k)[:n]
+        x = x.reshape(lead + (p * blk, k))[..., :n, :]
         return x[:, 0] if one_d else x
 
 
@@ -309,7 +326,7 @@ class BlockTridiagSolver:
         self.refine = int(refine) if refine is not None else (
             2 if strips.dtype == np.float32 else 0)
         self.strips = torch.from_numpy(
-            _pad_strips(strips, offsets, nblk * bt)).to(device)
+            _pad_strips(strips, offsets, nblk * bt)).to(resolve_device(device))
         self.D, self.B, self.C = _assemble_DBC(self.strips, offsets, nblk, bt,
                                                bt, bt)
         Sinv = []
@@ -377,12 +394,12 @@ class BlockTridiagSolver:
 def _smw_K(Xh, Uh):
     """The 2R x 2R capacitance K = I + Util^T X from the HALF operands:
     K = [[I+P, Q], [-Q, I+P]], P = Uh^T Xh, Q = Uh^T rot_i(Xh)."""
-    R = Xh.shape[1]
-    P = Uh.T @ Xh
-    Q = Uh.T @ rot_i(Xh)
+    R = Xh.shape[-1]
+    P = Uh.mT @ Xh
+    Q = Uh.mT @ _rows_rot_i(Xh)
     A = torch.eye(R, dtype=Xh.dtype, device=Xh.device) + P
-    return torch.cat([torch.cat([A, Q], dim=1), torch.cat([-Q, A], dim=1)],
-                     dim=0)
+    return torch.cat([torch.cat([A, Q], dim=-1), torch.cat([-Q, A], dim=-1)],
+                     dim=-2)
 
 
 class InterleavedSMW:
@@ -414,7 +431,7 @@ class InterleavedSMW:
         K = _smw_K(self.X, Uh)
         if self.mode == "inv":
             self.K_fac = torch.linalg.inv(K)
-            self.K_piv = torch.zeros(K.shape[0], dtype=torch.int32,
+            self.K_piv = torch.zeros(K.shape[:-1], dtype=torch.int32,
                                      device=K.device)
         else:
             self.K_fac, self.K_piv = torch.linalg.lu_factor(K)
@@ -434,12 +451,13 @@ class InterleavedSMW:
 
     def _ut_pair(self, x):
         """t = Util^T x over the half form: [Uh^T x; -Uh^T rot_i(x)]."""
-        return torch.cat([self.Uh.T @ x, -(self.Uh.T @ rot_i(x))], dim=0)
+        return torch.cat([self.Uh.mT @ x, -(self.Uh.mT @ _rows_rot_i(x))],
+                         dim=-2)
 
     def _x_apply(self, M, u):
         """[M, rot_i(M)] @ u for tall half operand M (2n, R), u (2R[, k])."""
-        R = M.shape[1]
-        return M @ u[:R] + rot_i(M @ u[R:])
+        R = M.shape[-1]
+        return M @ u[..., :R, :] + _rows_rot_i(M @ u[..., R:, :])
 
     def matvec(self, x):
         """y = M x = B x + Ltil (Util^T x)."""
@@ -528,7 +546,9 @@ def build_spmf_shift_solver(mats, fv, sigma, dtype=torch.float32, p=16,
     """Assemble the InterleavedSMW solver for M(sigma) of a mixed SPMF (see
     :func:`assemble_shift_parts`); interleaves on the host and factors on
     ``device``.  Returns ``None`` when the bulk is not usefully banded
-    (callers fall back to the dense block LU)."""
+    (callers fall back to the dense block LU).  ``device=None`` is the card
+    (``config.default_device``)."""
+    device = resolve_device(device)
     parts = assemble_shift_parts(mats, fv, sigma, max_rank=max_rank)
     if parts is None:
         return None
@@ -692,6 +712,204 @@ class ShiftPlan:
         Lc = np.hstack(Ls) if Ls else None
         Uc = np.hstack(Us) if Us else None
         return strips, list(self.offsets), Lc, Uc
+
+
+def _banded_mv64(D64, B64, C64, x, nblk, bt, n2):
+    """y = B x in float64 through the BLOCK-TRIDIAGONAL form (block size bt =
+    half-bandwidth): stores only 3 n2 bt entries — the memory-optimal
+    dense-block representation of the band (a (p, n2/p) partition block form
+    is mostly zeros).  x (..., n2, k) against blocks (..., nblk, bt, bt)."""
+    lead, k = tuple(x.shape[:-2]), x.shape[-1]
+    xp = torch.zeros(lead + (nblk * bt, k), dtype=x.dtype, device=x.device)
+    xp[..., :n2, :] = x
+    xb = xp.reshape(lead + (nblk, bt, k))
+    y = D64 @ xb
+    y[..., :-1, :, :] += B64[..., :-1, :, :] @ xb[..., 1:, :, :]
+    y[..., 1:, :, :] += C64[..., 1:, :, :] @ xb[..., :-1, :, :]
+    return y.reshape(lead + (nblk * bt, k))[..., :n2, :]
+
+
+#: canonical shift-batch sizes of the JAX package (there every distinct batch
+#: size compiles its own programs); the port keeps the table because
+#: ``newton_refine`` sizes its memory-aware chunks by it
+BATCH_SIZES = (1, 2, 3, 4, 6, 8, 10, 12, 16, 20, 24, 32, 48, 64)
+
+
+def canonical_batch(k):
+    """Smallest canonical batch size >= k (k itself past the table)."""
+    for c in BATCH_SIZES:
+        if c >= k:
+            return c
+    return int(k)
+
+
+class BatchedShiftSMW:
+    """A BATCH of :class:`InterleavedSMW` solvers, one per shift, factored
+    together: every factor carries a leading shift axis S, so the setup is
+    batched ``torch.linalg`` factorizations over S x p partition blocks and
+    each solve a handful of batched GEMMs.
+
+    ``solve_pairs(Rre, Rim)``: (n, S) split-channel right-hand sides, pair
+    ``j`` solved against shift ``j``'s factorization (the per-eigenvalue
+    Newton-refinement contract).
+
+    ``ir > 0`` is the mixed-precision path: float32 block factorization,
+    float64 iterative refinement of the banded base solves against the
+    block-tridiagonal float64 form of the band, float64 SMW operands and a
+    float64 capacitance inverse — float64-quality solves from a float32
+    factorization.  (The JAX package pads the shift batch to canonical sizes
+    for its compile cache; eager PyTorch compiles nothing per shape, so the
+    batch is taken as given.)"""
+
+    def __init__(self, mats, fv, sigmas, dtype=torch.float32, p=8,
+                 mode="inv", plan=None, refine=1, ir=0, device=None):
+        import time
+
+        from ..parallel.spike import interleave_complex_banded
+
+        device = resolve_device(device)
+        self.timings = {}
+        t0 = time.perf_counter()
+        sigmas = np.asarray(sigmas)
+        self.S_real = len(sigmas)
+        rdt = to_numpy_dtype(dtype)
+        if np.issubdtype(rdt, np.complexfloating):
+            rdt = np.dtype(np.float64 if rdt == np.complex128 else np.float32)
+        if plan is None:
+            plan = ShiftPlan(mats, fv)
+        if not plan.ok:
+            raise ValueError("bulk is neither banded nor arrow-splittable")
+        rs_list, Lt_list, Ut_list = [], [], []
+        roffs = None
+        for sg in sigmas:
+            strips, offs, Lc, Uc = plan.parts(sg)
+            rstrips, roffs = interleave_complex_banded(strips, offs)
+            rs_list.append(rstrips)
+            if Lc is None:
+                Lc = np.zeros((plan.n, 1), dtype=complex)
+                Uc = np.zeros((plan.n, 1), dtype=complex)
+            Lh, Uh = complex_lowrank_to_half(Lc, Uc)
+            Lt_list.append(Lh)
+            Ut_list.append(Uh)
+        self.timings["host_assemble"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        n2 = rs_list[0].shape[1]
+        offsets = tuple(int(o) for o in roffs)
+        b = max(max((abs(o) for o in offsets), default=1), 1)
+        p = int(p)
+        blk = -(-n2 // p)
+        while blk < b:
+            p = max(p // 2, 1)
+            blk = -(-n2 // p)
+        stack = np.stack([_pad_strips(rs, offsets, p * blk)
+                          for rs in rs_list])
+        Lt_stack, Ut_stack = np.stack(Lt_list), np.stack(Ut_list)
+        self.aux = (offsets, p, blk, b, n2, mode)
+        self.refine = int(refine)
+        self.ir = int(ir)
+        self.n = plan.n
+        self.device = device
+
+        def dev(x, dt):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(
+                device=device, dtype=dt)
+
+        if self.ir:
+            # float32 factors; the block-tridiagonal float64 form of the band
+            # serves the refinement residuals (the dense float32 partition
+            # blocks are dropped: this path never calls the float32 matvec)
+            strips32 = dev(stack, torch.float32)
+            fac, piv, V, W, r_fac, r_piv, _ = _factor_partitioned(
+                strips32, offsets, p, blk, b, mode)
+            self.base = PartitionedBandedSolver.from_factors(
+                fac, piv, V, W, r_fac, r_piv, strips32, (None, None, None),
+                offsets, p, blk, b, n2, mode)
+            bt = int(b)
+            nblk = -(-n2 // bt)
+            self.btdims = (nblk, bt)
+            s64bt = np.zeros((len(rs_list), len(offsets), nblk * bt))
+            for i, rs in enumerate(rs_list):
+                s64bt[i, :, :n2] = rs
+            self.D64, self.B64, self.C64 = _assemble_DBC(
+                dev(s64bt, torch.float64), offsets, nblk, bt, bt, bt)
+            self.Lh64 = dev(Lt_stack, torch.float64)
+            self.Uh64 = dev(Ut_stack, torch.float64)
+            self.timings["transfer_factor"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            self.X64 = self._bsolve64(self.Lh64)
+            # K inherits the GLOBAL conditioning of M(sigma) (near an
+            # eigenvalue kappa(K) ~ 1/dist), so it is inverted in float64
+            self.Kinv64 = torch.linalg.inv(_smw_K(self.X64, self.Uh64))
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            self.timings["smw_setup"] = time.perf_counter() - t0
+            return
+        tdt = to_torch_dtype(rdt)
+        strips_b = dev(stack, tdt)
+        fac, piv, V, W, r_fac, r_piv, DBC = _factor_partitioned(
+            strips_b, offsets, p, blk, b, mode)
+        base = PartitionedBandedSolver.from_factors(
+            fac, piv, V, W, r_fac, r_piv, strips_b, DBC, offsets, p, blk, b,
+            n2, mode)
+        self.smw = InterleavedSMW(base, dev(Lt_stack, tdt),
+                                  dev(Ut_stack, tdt), refine=self.refine)
+        self.timings["transfer_factor"] = time.perf_counter() - t0
+
+    def _bsolve64(self, f):
+        """Banded base solve to float64 accuracy: float32 SPIKE solve +
+        ``ir`` residual corrections against the float64 band."""
+        nblk, bt = self.btdims
+        n2 = self.aux[4]
+        x = self.base.solve(f.to(torch.float32)).to(torch.float64)
+        for _ in range(max(self.ir, 1)):
+            r = f - _banded_mv64(self.D64, self.B64, self.C64, x, nblk, bt,
+                                 n2)
+            x = x + self.base.solve(r.to(torch.float32)).to(torch.float64)
+        return x
+
+    def _ut_pair64(self, x):
+        return torch.cat([self.Uh64.mT @ x,
+                          -(self.Uh64.mT @ _rows_rot_i(x))], dim=-2)
+
+    def _full_solve64(self, f):
+        R = self.X64.shape[-1]
+        g = self._bsolve64(f)
+        u = self.Kinv64 @ self._ut_pair64(g)
+        return (g - self.X64 @ u[..., :R, :]
+                - _rows_rot_i(self.X64 @ u[..., R:, :]))
+
+    def _full_mv64(self, x):
+        nblk, bt = self.btdims
+        R = self.Lh64.shape[-1]
+        t = self._ut_pair64(x)
+        return (_banded_mv64(self.D64, self.B64, self.C64, x, nblk, bt,
+                             self.aux[4])
+                + self.Lh64 @ t[..., :R, :]
+                + _rows_rot_i(self.Lh64 @ t[..., R:, :]))
+
+    def solve_pairs(self, Rre, Rim):
+        """Per-pair shifted solves: column j against shift j.  Rre/Rim:
+        (n, S) arrays or tensors; returns float64 numpy ``(xre, xim)`` of the
+        same shape.  With ``ir`` set the result carries float64-quality
+        accuracy from the float32 factorization (one full-system float64
+        refinement sweep on top of the refined base solves)."""
+        dt = torch.float64 if self.ir else self.smw.X.dtype
+        Rre = torch.as_tensor(np.asarray(Rre)).to(device=self.device,
+                                                  dtype=dt)
+        Rim = torch.as_tensor(np.asarray(Rim)).to(device=self.device,
+                                                  dtype=dt)
+        if Rre.shape[1] != self.S_real:
+            raise ValueError(
+                f"expected {self.S_real} RHS columns, got {Rre.shape[1]}")
+        # (n, S) channel pair -> interleaved (S, 2n, 1), one system per shift
+        f = torch.stack([Rre.T, Rim.T], dim=2).reshape(self.S_real, -1, 1)
+        if self.ir:
+            x = self._full_solve64(f)
+            x = x + self._full_solve64(f - self._full_mv64(x))
+        else:
+            x = self.smw.solve(f)
+        x2 = x.reshape(self.S_real, -1, 2).to(torch.float64).cpu().numpy()
+        return x2[:, :, 0].T, x2[:, :, 1].T
 
 
 def arrow_split(A, max_rank):

@@ -19,7 +19,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
-from ..config import to_numpy_dtype
+from ..config import resolve_device, to_numpy_dtype
 
 __all__ = [
     "CSR",
@@ -108,6 +108,10 @@ class DenseTermBank:
     def dtype(self):
         return self.A.dtype
 
+    @property
+    def device(self):
+        return self.A.device
+
     def term(self, i):
         return self.A[i]
 
@@ -162,11 +166,16 @@ class SparseTermBank:
     def dtype(self):
         return self.data.dtype
 
+    @property
+    def device(self):
+        return self.data.device
+
     @classmethod
     def from_matrices(cls, mats: Sequence[Any], dtype=None, device=None):
         """Align the sparsity patterns of ``mats`` (scipy sparse / ndarray)."""
         import scipy.sparse as sp
 
+        device = resolve_device(device)
         mats = [_to_scipy_csr(A) for A in mats]
         n, m = mats[0].shape
         pattern = sp.csr_matrix((n, m))
@@ -255,9 +264,10 @@ def make_term_bank(mats: Sequence[Any], dtype=None, prefer_sparse=None,
     ``prefer_sparse=None`` picks sparse storage iff all operands are
     scipy-sparse.  Among sparse formats, banded operand sets with few shared
     diagonals (<= 48, n >= 512) get the stacked-DIA layout; ``fmt`` forces
-    "dia"/"csr"/"dense"."""
+    "dia"/"csr"/"dense".  ``device=None`` is the card (``config``)."""
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     seq = list(mats)
     if not seq:
         raise ValueError("term bank needs at least one operand")

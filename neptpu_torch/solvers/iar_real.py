@@ -4,8 +4,8 @@ The iteration is carried in split re/im channels, as the JAX package does it,
 so the port can be held against it step by step:
 
 * the Mlincomb of a step is a small complex coefficient table applied as four
-  real GEMMs + one split bank apply (two launches of the DIA SpMV kernel on
-  the card: the re and the im channel);
+  real GEMMs + one split bank apply (on the card ONE launch of the DIA SpMV
+  pair kernel for the re and im channels of the main bank);
 * the shifted solve is a ``solve_pair(zre, zim)`` object factored once
   (:class:`neptpu_torch.ops.partitioned.InterleavedSMW`, or the dense
   :class:`DenseBlockLU` fallback);

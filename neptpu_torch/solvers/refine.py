@@ -2,17 +2,20 @@
 reference-class backward errors.
 
 The float32 scan converges to backward errors around the float32 floor
-(~1e-6).  :func:`newton_refine` closes the gap to 1e-9..1e-11 with residuals,
-eigenvalue updates and the per-shift solves in complex128 on the HOST (scipy
-``splu`` of M at a slightly offset shift per pair — the ``host`` backend).
-The batched on-device backend of the JAX package (``BatchedShiftSMW``) is not
-ported yet: asking for it raises.
+(~1e-6).  :func:`newton_refine` closes the gap to 1e-9..1e-11: residuals and
+eigenvalue updates run in complex128 on the host, the per-pair shifted solves
+either on the host (scipy ``splu`` of M at a slightly offset shift per pair —
+the ``host`` backend) or on the device through one batched per-shift
+factorization (:class:`neptpu_torch.ops.partitioned.BatchedShiftSMW`:
+float32 SPIKE + SMW factors with float64 iterative refinement — the ``chip``
+backend).  :func:`resinv_refine` polishes against the scan's own frozen
+factorization instead, with no new one.
 """
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["spmf_fun_derivs", "newton_refine"]
+__all__ = ["spmf_fun_derivs", "newton_refine", "resinv_refine"]
 
 
 def spmf_fun_derivs(fv, lam, k=2):
@@ -41,6 +44,9 @@ class _TermOps:
         self.nt = len(csr)
         self.n = csr[0].shape[0]
         self.A_all = sp.vstack(csr, format="csr")
+        # terms collected from an aligned bank share the union pattern and
+        # carry explicit zeros (9 in 10 stored entries at waveguide size)
+        self.A_all.eliminate_zeros()
 
     def weights(self, lams, nder=1):
         """W[i, d, j] = f_i^{(d)}(lams[j]) — complex128 (nt, nder, k)."""
@@ -59,64 +65,41 @@ class _TermOps:
         return np.einsum("tnk,tk->nk", T, w)
 
 
-def _chip_backend_missing():
-    return NotImplementedError(
-        "newton_refine backend='chip' (the batched on-device per-shift "
-        "factorization, BatchedShiftSMW of neptpu/ops/partitioned.py) is not "
-        "ported to neptpu_torch yet (ROADMAP queue A); use backend='host'")
+def _refine_batch_limit(plan, p=8, budget_bytes=6.0e9):
+    """Largest shift-batch whose solver state fits the device-memory budget.
+
+    Per-shift footprint of :class:`BatchedShiftSMW` (ir mode): float32 block
+    inverses + reduced inverse, float64 block-tridiag matvec form, float64
+    HALF SMW operands (Xh, Lh, Uh — R columns each, the rot_i commutation
+    halving).  The default budget is the JAX package's, kept for parity
+    until it is re-measured on the card."""
+    n2 = 2 * plan.n
+    b2 = 2 * max(plan.b, 1) + 1
+    blk = -(-n2 // p)
+    rank = sum(L.shape[1] for _, L, _ in plan.lr) + 2 * plan.m
+    Rh = max(rank, 1)
+    per = (4 * (p * blk * blk + (2 * b2 * p) ** 2)      # fac + reduced
+           + 8 * 3 * n2 * b2                            # D64/B64/C64
+           + 8 * 3 * n2 * Rh                            # X64h, Lh64, Uh64
+           + 12 * n2 * b2)                              # strips (f32 + f64)
+    return max(1, int(budget_bytes // per))
 
 
-def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
-                  errmeasure=None, dtype=None, p=16, plan=None, ir=0,
-                  shift_rel=1e-8, backend="host", target_distinct=None,
-                  _second_pass=False):
-    """Per-pair nonlinear inverse iteration ``v <- M(sig_j)^{-1} M'(lam_j) v``
-    with a least-squares eigenvalue update, residuals in complex128 on the
-    host.  Each pair's shift ``sig_j`` sits a relative ``shift_rel`` off its
-    eigenvalue estimate (bounding the condition of M(sig_j)).
-
-    ``backend``: ``"host"`` (scipy splu per shift) or ``"auto"`` (host below
-    2n = 2e5, the JAX package's crossover); ``"chip"``, or ``"auto"`` above
-    the crossover, raises ``NotImplementedError``.  ``dtype``, ``p`` and
-    ``ir`` configure the chip backend and are unused here.
-    Returns ``(lams, Q, errs)``."""
+def _host_shift_lus(csr, fv, sig_f):
+    """Exact scipy ``splu`` of M(sig) per shift.  Aligned banks give every
+    term one pattern, so the weighted sum is one (nt,) @ (nt, nnz) GEMV."""
     import scipy.sparse as sp
     import scipy.sparse.linalg as spla
 
-    del dtype, p, ir  # chip-backend options
-    lams = np.array(lams, dtype=complex, copy=True)
-    Q = np.array(Q, dtype=complex, copy=True)
-    k = len(lams)
-    if k == 0:
-        return lams, Q, np.zeros(0)
-    if backend not in ("chip", "host", "auto"):
-        raise ValueError(f"backend must be chip|host|auto, got {backend!r}")
-    csr = [A.tocsr() for A in mats]
-    if backend == "auto":
-        from ..ops.partitioned import ShiftPlan
-
-        if plan is None:
-            plan = ShiftPlan(mats, fv)
-        # crossover kept from the JAX package (measured there on a TPU, to
-        # be re-measured on the card): host splu until 2n passes 2e5
-        backend = "chip" if (plan.ok and 2 * plan.n > 2e5) else "host"
-    if backend == "chip":
-        raise _chip_backend_missing()
-    # host sweeps are cheap (k SpMVs + triangular solves); weakly converged
-    # Ritz pairs need several frozen-shift contractions
-    nsweeps = max(int(nsweeps), 6)
-    sig_f = lams + 1j * shift_rel * np.maximum(np.abs(lams), 1.0)
-    # exact scipy splu per shift; aligned banks give every term one pattern,
-    # so the weighted sum is one (nt,) @ (nt, nnz) GEMV
     A0 = csr[0]
     aligned = all(
         A.nnz == A0.nnz and np.array_equal(A.indices, A0.indices)
         and np.array_equal(A.indptr, A0.indptr) for A in csr[1:])
     if aligned:
         Dstack = np.stack([A.data.astype(complex) for A in csr])
-    lus = []
-    for j in range(k):
-        w = spmf_fun_derivs(fv, sig_f[j], 1)[:, 0]
+    lus = {}
+    for j, sg in enumerate(sig_f):
+        w = spmf_fun_derivs(fv, sg, 1)[:, 0]
         if aligned:
             M = sp.csr_matrix((w @ Dstack, A0.indices, A0.indptr),
                               shape=A0.shape)
@@ -125,9 +108,126 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
             for wi, A in zip(w, csr):
                 T = A.astype(complex) * wi
                 M = T if M is None else M + T
-        lus.append(spla.splu(M.tocsc()))
+        lus[j] = spla.splu(M.tocsc())
+    return lus
+
+
+def _validate_shifts(ops, sig_f, bsolver, rel_tol=1e-6, seed=123):
+    """One random-probe solve per shift against the host float64 residual;
+    returns the indices of the shifts whose relative residual exceeds
+    ``rel_tol`` (the mixed-precision SPIKE + SMW chain can still lose a shift
+    whose BANDED bulk alone is near-singular); those go to a host splu."""
+    k = len(sig_f)
+    probe = np.random.default_rng(seed).standard_normal((ops.n, k))
+    yre, yim = bsolver.solve_pairs(probe, np.zeros_like(probe))
+    Y = yre + 1j * yim
+    W = ops.weights(sig_f, 1)[:, 0]          # (nt, k)
+    My = ops.contract(ops.apply(Y), W)       # batched residual matvecs
+    rel = np.linalg.norm(My - probe, axis=0) / np.linalg.norm(probe, axis=0)
+    return [int(j) for j in np.nonzero(~np.isfinite(rel) | (rel > rel_tol))[0]]
+
+
+def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
+                  errmeasure=None, dtype=None, p=16, plan=None, ir=0,
+                  shift_rel=1e-8, max_batch=None, backend="chip",
+                  target_distinct=None, device=None, stats=None,
+                  _second_pass=False):
+    """Per-pair nonlinear inverse iteration ``v <- M(sig_j)^{-1} M'(lam_j) v``
+    with a least-squares eigenvalue update, residuals in complex128 on the
+    host.  Each pair's shift ``sig_j`` sits a relative ``shift_rel`` off its
+    eigenvalue estimate (bounding the condition of M(sig_j)); solve
+    inexactness multiplies the CORRECTION, not the iterate, so float32
+    device factors do not cap the attainable backward error.
+
+    ``backend``: ``"chip"`` factors all shifts in one batched
+    :class:`BatchedShiftSMW` on ``device`` (default: the card), in
+    memory-sized chunks of at most ``max_batch`` shifts; ``"host"`` uses a
+    scipy splu per shift; ``"auto"`` picks the host below 2n = 2e5 (the JAX
+    package's crossover, not yet re-measured on the card).  ``dtype``, ``p``
+    and ``ir`` configure the chip backend.  ``stats``: a dict that, when
+    given, accumulates over all chunks and passes ``"chip_shifts"`` (shifts
+    factored and solved on the device) and ``"host_fallback_shifts"`` (shifts
+    of the chip backend whose probe solve failed validation and went to a
+    host splu instead).  Returns ``(lams, Q, errs)``."""
+    lams = np.array(lams, dtype=complex, copy=True)
+    Q = np.array(Q, dtype=complex, copy=True)
+    k = len(lams)
+    if k == 0:
+        return lams, Q, np.zeros(0)
+    if backend not in ("chip", "host", "auto"):
+        raise ValueError(f"backend must be chip|host|auto, got {backend!r}")
+    # ONE partition count for both the memory budget and the solver itself
+    p = min(int(p), 8)
+    csr = [A.tocsr() for A in mats]
+    if backend == "auto":
+        from ..ops.partitioned import ShiftPlan
+
+        if plan is None:
+            plan = ShiftPlan(mats, fv)
+        backend = "chip" if (plan.ok and 2 * plan.n > 2e5) else "host"
+    if backend == "host":
+        # host sweeps are cheap (k SpMVs + triangular solves); weakly
+        # converged Ritz pairs need several frozen-shift contractions
+        nsweeps = max(int(nsweeps), 6)
+    else:
+        import torch
+
+        from ..config import resolve_device
+        from ..ops.partitioned import (BATCH_SIZES, BatchedShiftSMW,
+                                       ShiftPlan)
+
+        device = resolve_device(device)
+        if dtype is None:
+            dtype = torch.float32
+        if plan is None:
+            plan = ShiftPlan(mats, fv)
+    # memory-aware chunking: each chunk gets its OWN factorization (built,
+    # used for all sweeps, freed)
+    if backend == "chip" and not _second_pass:
+        if max_batch is None:
+            lim = _refine_batch_limit(plan, p=p)
+            fits = [c for c in BATCH_SIZES if c <= lim]
+            max_batch = fits[-1] if fits else lim
+        if k > max_batch:
+            nchunks = -(-k // max_batch)  # even chunk sizes (5+5, not 9+1)
+            max_batch = -(-k // nchunks)
+            errs = np.zeros(k)
+            for s0 in range(0, k, max_batch):
+                sl = slice(s0, min(s0 + max_batch, k))
+                lams[sl], Q[:, sl], errs[sl] = newton_refine(
+                    mats, fv, lams[sl], Q[:, sl], nsweeps=nsweeps, tol=tol,
+                    errmeasure=errmeasure, dtype=dtype, p=p, plan=plan,
+                    ir=ir, shift_rel=shift_rel, max_batch=max_batch,
+                    backend="chip", device=device, stats=stats)
+            return lams, Q, errs
 
     ops = _TermOps(csr, fv)
+    sig_f = lams + 1j * shift_rel * np.maximum(np.abs(lams), 1.0)
+    if backend == "host":
+        lus = _host_shift_lus(csr, fv, sig_f)
+
+        def solve(R):
+            return np.stack([lus[j].solve(R[:, j]) for j in range(k)], axis=1)
+    else:
+        # factor at OFFSET shifts: an eigenvalue-accurate shift makes M(lam_j)
+        # singular to ~the backward error, and the float32-seeded refinement
+        # diverges once kappa * eps_f32 > 1
+        bsolver = BatchedShiftSMW(mats, fv, sig_f, dtype=dtype, p=p,
+                                  plan=plan, ir=ir, device=device)
+        bad = _validate_shifts(ops, sig_f, bsolver)
+        lus = _host_shift_lus(csr, fv, sig_f[bad]) if bad else {}
+        if stats is not None:
+            stats["chip_shifts"] = stats.get("chip_shifts", 0) + k - len(bad)
+            stats["host_fallback_shifts"] = (
+                stats.get("host_fallback_shifts", 0) + len(bad))
+
+        def solve(R):
+            yre, yim = bsolver.solve_pairs(R.real, R.imag)
+            Y = yre + 1j * yim
+            for t, j in enumerate(bad):
+                Y[:, j] = lus[t].solve(R[:, j])
+            return Y
+
     # an errmeasure callable may carry a batched form under ``.batch``
     err_batch = getattr(errmeasure, "batch", None)
 
@@ -141,7 +241,7 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
             ops.contract(ops.apply(Qm), ops.weights(lams_v, 1)[:, 0]), axis=0)
 
     errs = meas_vec(lams, Q)
-    for _ in range(nsweeps):
+    for _ in range(int(nsweeps)):
         if tol is not None and np.all(errs < tol):
             break
         T = ops.apply(Q)                       # (nt, n, k), one SpMM
@@ -154,8 +254,7 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
         step = np.where(denom > 0, num / np.where(denom > 0, denom, 1.0), 0)
         cand = lams - step
         # inverse-iteration RHS at the updated eigenvalues: M'(cand) q
-        R = ops.contract(T, ops.weights(cand, 2)[:, 1])
-        Y = np.stack([lus[j].solve(R[:, j]) for j in range(k)], axis=1)
+        Y = solve(ops.contract(T, ops.weights(cand, 2)[:, 1]))
         newQ = Y / np.linalg.norm(Y, axis=0, keepdims=True)
         # accept the first improving combo of (new lam, new q) /
         # (old lam, new q) / (new lam, old q), per pair; never worse
@@ -183,22 +282,99 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
                 sel.append(j)
         return len(sel) >= int(target_distinct)
 
-    # stragglers get up to four more passes, each with a fresh factorization
-    # at the now-better eigenvalue estimates
+    # stragglers get more passes, each with a fresh factorization at the
+    # now-better eigenvalue estimates (host refactors are cheap: up to four)
     passes = 0
-    while (tol is not None and not _second_pass and passes < 4
+    max_passes = 4 if backend == "host" else 2
+    while (tol is not None and not _second_pass and passes < max_passes
            and np.any(errs >= tol) and not _distinct_done()):
-        bad = np.nonzero(errs >= tol)[0]
+        bad_pairs = np.nonzero(errs >= tol)[0]
         lb, Qb, eb = newton_refine(
-            mats, fv, lams[bad], Q[:, bad], nsweeps=nsweeps, tol=tol,
-            errmeasure=errmeasure, plan=plan, shift_rel=shift_rel,
-            backend="host", _second_pass=True)
+            mats, fv, lams[bad_pairs], Q[:, bad_pairs], nsweeps=nsweeps,
+            tol=tol, errmeasure=errmeasure, dtype=dtype, p=p, plan=plan,
+            ir=ir, shift_rel=shift_rel, backend=backend, device=device,
+            stats=stats, _second_pass=True)
         improved = False
-        for t, j in enumerate(bad):
+        for t, j in enumerate(bad_pairs):
             if eb[t] < errs[j]:
                 lams[j], Q[:, j], errs[j] = lb[t], Qb[:, t], eb[t]
                 improved = True
         passes += 1
         if not improved:
             break
+    return lams, Q, errs
+
+
+def resinv_refine(mats, fv, solver, lams, Q, *, nsweeps=3, tol=None,
+                  errmeasure=None):
+    """Polish eigenpairs ``(lams[j], Q[:, j])`` by residual inverse iteration
+    against ``solver``, a ``solve_pair`` object factored at the IAR shift
+    (reused — no new factorization).  ``errmeasure(lam, q)`` drives the
+    optional early exit at ``tol`` and the returned error vector.
+
+    Returns ``(lams, Q, errs)`` with unit columns; a pair that fails to
+    improve keeps its best-so-far iterate.  Frozen-shift residual inverse
+    iteration amplifies the shift-closest eigendirections in every other
+    pair's correction, so each correction is projected out of the span of
+    the current set before it is applied; the attainable floor is then set by
+    cross-contamination inside the span (~1e-9 backward on the gun/WEP
+    class) — for 1e-10+ floors use :func:`newton_refine`."""
+    import torch
+
+    from .iar_real import as_pair_solver
+
+    solver = as_pair_solver(solver)
+    lams = np.array(lams, dtype=complex, copy=True)
+    Q = np.array(Q, dtype=complex, copy=True)
+    k = len(lams)
+    if k == 0:
+        return lams, Q, np.zeros(0)
+    n = Q.shape[0]
+    csr = [A.tocsr() for A in mats]
+
+    def meas(lam, q):
+        if errmeasure is not None:
+            return float(errmeasure(lam, q))
+        D = spmf_fun_derivs(fv, lam, 1)[:, 0]
+        return float(np.linalg.norm(sum(wi * (A @ q)
+                                        for wi, A in zip(D, csr))))
+
+    errs = np.array([meas(lams[j], Q[:, j]) for j in range(k)])
+    ref = solver.X if getattr(solver, "X", None) is not None else (
+        solver.base.strips if hasattr(solver, "base") else solver.lu)
+
+    for _ in range(int(nsweeps)):
+        if tol is not None and np.all(errs < tol):
+            break
+        # eigenvalue update + residual, all pairs, host complex128
+        R = np.zeros((n, k), dtype=complex)
+        cand = lams.copy()
+        for j in range(k):
+            D = spmf_fun_derivs(fv, lams[j], 2)
+            Aq = [A @ Q[:, j] for A in csr]
+            Mq = sum(D[i, 0] * Aq[i] for i in range(len(csr)))
+            Mpq = sum(D[i, 1] * Aq[i] for i in range(len(csr)))
+            # one-dim Newton on u^H M(lam) q with u = q (Rayleigh functional)
+            denom = np.vdot(Q[:, j], Mpq)
+            if denom != 0:
+                cand[j] = lams[j] - np.vdot(Q[:, j], Mq) / denom
+                Dn = spmf_fun_derivs(fv, cand[j], 1)[:, 0]
+                Mq = sum(Dn[i] * Aq[i] for i in range(len(csr)))
+            R[:, j] = Mq
+        # device correction: dq = M(sigma)^{-1} r, all pairs in one block
+        dre, dim_ = solver.solve_pair(
+            torch.as_tensor(R.real).to(device=ref.device, dtype=ref.dtype),
+            torch.as_tensor(R.imag).to(device=ref.device, dtype=ref.dtype))
+        dq = (dre.to(torch.float64).cpu().numpy()
+              + 1j * dim_.to(torch.float64).cpu().numpy())
+        Uo, _ = np.linalg.qr(Q)
+        dq = dq - Uo @ (Uo.conj().T @ dq)
+        newQ = Q - dq
+        newQ = newQ / np.linalg.norm(newQ, axis=0, keepdims=True)
+        for j in range(k):
+            e = meas(cand[j], newQ[:, j])
+            if e < errs[j]:  # accept lam and q together, else keep both
+                lams[j] = cand[j]
+                Q[:, j] = newQ[:, j]
+                errs[j] = e
     return lams, Q, errs

@@ -20,7 +20,7 @@ import warnings
 import numpy as np
 import torch
 
-from ..config import to_numpy_dtype, to_torch_dtype
+from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
 from ..ops.mixed import make_mixed_bank
 from .iar_real import apply_theta, auto_theta, run_iar_real
 
@@ -119,6 +119,7 @@ def spmf_shift_block_lu(mats, fv, sigma, dtype=torch.float32, device=None):
     scattered and LU-factored (``torch.linalg.lu_factor``) on ``device``."""
     import scipy.sparse as sp
 
+    device = resolve_device(device)
     w = spmf_fun_scalars(fv, sigma)
     M0 = None
     for wi, A in zip(w, mats):
@@ -140,18 +141,24 @@ def spmf_shift_block_lu(mats, fv, sigma, dtype=torch.float32, device=None):
 
 
 def _spmf_host_resnorm(mats, fv):
+    """``(lam, q) -> ||M(lam) q||`` on the host in complex128; all terms
+    stacked into one tall CSR so a call is ONE SpMV (the waveguide carries
+    213 terms) and a weight contraction."""
+    import scipy.sparse as sp
+
+    nt, n = len(mats), mats[0].shape[0]
+    A_all = sp.vstack([sp.csr_matrix(A) for A in mats], format="csr")
+    A_all.eliminate_zeros()  # aligned banks hand out explicit zeros
+
     def resnorm(lam, q):
         w = spmf_fun_scalars(fv, lam)
-        y = np.zeros(q.shape[0], dtype=complex)
-        for wi, A in zip(w, mats):
-            y = y + wi * (A @ q)
-        return float(np.linalg.norm(y))
+        return float(np.linalg.norm(w @ (A_all @ q).reshape(nt, n)))
 
     return resnorm
 
 
 def _sync(device):
-    if device is not None and torch.device(device).type == "cuda":
+    if device.type == "cuda":
         torch.cuda.synchronize(device)
 
 
@@ -168,18 +175,21 @@ def iar_real_spmf(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None,
     Ritz pairs pass ``tol``, checking every that many steps.
     ``errmeasure``: optional ``(lam, q) -> float`` replacing the residual
     norm.  ``device``: where the bank, the factorization and the basis live
-    (default: the device of ``bank`` or the CPU).  ``precision`` is a no-op
-    kept for parity with the JAX package (TF32 is off)."""
+    (default: the device of ``bank``, else the card; ``"cpu"`` for a CPU run).
+    ``precision`` is a no-op kept for parity with the JAX package (TF32 is
+    off, so ``"highest"`` is what every float32 product already gets)."""
+    device = resolve_device(device, like=bank)
     mats, fv = collect_spmf_terms(nep)
     n = mats[0].shape[0]
     m = int(maxit)
     dt = to_torch_dtype(dtype)
-    if device is None:
-        device = bank.device if bank is not None else torch.device("cpu")
     if tol is None:
         tol = 1e4 * float(torch.finfo(dt).eps)
+    t_bank = 0.0
     if bank is None:
+        t0 = time.perf_counter()
         bank = make_mixed_bank(mats, dtype=to_numpy_dtype(dt), device=device)
+        t_bank = time.perf_counter() - t0
 
     t0 = time.perf_counter()
     if lu_piv is None:
@@ -195,6 +205,7 @@ def iar_real_spmf(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None,
 
     # 'auto': classic Taylor space unless its table overflows ``dt`` before
     # ``maxit`` — then the theta-scaled space
+    t0 = time.perf_counter()
     if scaled == "auto":
         Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m, scaled=False)
         scaled = finite_table_prefix(Cre, Cim, dt) < m
@@ -212,6 +223,7 @@ def iar_real_spmf(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None,
             f"{m_fin}; truncating maxit {m} -> {m_fin}")
         m = m_fin
         Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
+    t_table = time.perf_counter() - t0
     if v is None:
         v = np.ones(n)
 
@@ -222,6 +234,8 @@ def iar_real_spmf(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None,
         check_error_every=check_error_every, scaled=scaled, theta=theta,
         device=device, precision=precision)
     info["t_factorize"] = t_fact
+    info["t_bank"] = t_bank
+    info["t_table"] = t_table
     info["theta"] = theta
     info["scaled"] = scaled
     if return_solver:
@@ -241,10 +255,13 @@ def iar_real_spmf_multishift(nep, sigmas, gamma=1.0, maxit=30, neigs=6,
     The term bank is built once and shared; each extra shift costs one
     shifted factorization plus one scan.  Returns ``(lams, Q[, info])`` over
     the union of converged pairs, best residual first, pairs within
-    ``dedupe_rel`` relative distance merged."""
+    ``dedupe_rel`` relative distance merged.  ``device=None`` is the card."""
+    device = resolve_device(device)
     mats, fv = collect_spmf_terms(nep)
     dt = to_torch_dtype(dtype)
+    t0 = time.perf_counter()
     bank = make_mixed_bank(mats, dtype=to_numpy_dtype(dt), device=device)
+    t_bank = time.perf_counter() - t0
     meas = errmeasure if errmeasure is not None else _spmf_host_resnorm(
         mats, fv)
     all_l, all_q, infos = [], [], []
@@ -260,7 +277,8 @@ def iar_real_spmf_multishift(nep, sigmas, gamma=1.0, maxit=30, neigs=6,
             all_q.append(np.asarray(Q[:, j]))
     if not all_l:
         out = (np.zeros(0, complex), np.zeros((nep.n, 0), complex))
-        return out + ({"per_shift": infos},) if return_info else out
+        return (out + ({"per_shift": infos, "t_bank": t_bank},)
+                if return_info else out)
     errs = np.array([meas(la, q) for la, q in zip(all_l, all_q)])
     sel = []
     for j in np.argsort(errs):
@@ -271,5 +289,6 @@ def iar_real_spmf_multishift(nep, sigmas, gamma=1.0, maxit=30, neigs=6,
     lams = np.array([all_l[j] for j in sel])
     Q = np.stack([all_q[j] for j in sel], axis=1)
     if return_info:
-        return lams, Q, {"per_shift": infos, "errs": errs[sel]}
+        return lams, Q, {"per_shift": infos, "errs": errs[sel],
+                         "t_bank": t_bank}
     return lams, Q

@@ -11,7 +11,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
-from torch_port_helpers import (SMALL_GAMMA, SMALL_SIGMA, backward_errmeasure,
+from torch_port_helpers import (CPU, SMALL_GAMMA, SMALL_SIGMA, backward_errmeasure,
                                 rel_err, small_gun_like)
 
 from neptpu_torch.models.gallery.nlevp import _gun_from_matrices
@@ -49,13 +49,69 @@ def test_kernel_matches_twin_and_cpu(cuda, dtype, rtol, offs):
     y = tb.lincomb_apply(W.to(device=cuda, dtype=dtype))
     torch.cuda.synchronize()
     assert dia_kernel.DIA_SPMV.launches == before + 1
-    y_cpu = DiaTermBank.from_matrices(mats, dtype=dtype).lincomb_apply(
+    y_cpu = DiaTermBank.from_matrices(mats, dtype=dtype,
+                                      device=CPU).lincomb_apply(
         W.to(dtype))
     assert rel_err(y.cpu().numpy(), y_cpu.numpy()) < rtol
-    # a complex operand is two real launches
+    # a complex operand is one launch of the re/im pair kernel
     yc = tb.lincomb_apply((W + 2j * W).to(cuda))
-    assert dia_kernel.DIA_SPMV.launches == before + 3
+    assert dia_kernel.DIA_SPMV.launches == before + 2
+    assert dia_kernel.DIA_SPMV.counts["dia_lincomb_pair"] >= 1
     assert rel_err(yc.cpu().numpy(), (y_cpu + 2j * y_cpu).numpy()) < rtol
+
+
+# the pair kernel sums each output in the single kernel's order: equal to two
+# single launches bit for bit, and within a few roundings of the twin
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_pair_kernel_matches_twin_and_two_singles(cuda, dtype, rtol):
+    mats = _mats([-26, -25, -1, 0, 1, 25, 26], 700, 3)
+    tb = DiaTermBank.from_matrices(mats, dtype=dtype, device=cuda)
+    rng = np.random.default_rng(5)
+    Wre = torch.from_numpy(rng.standard_normal((700, 3))).to(cuda, dtype)
+    Wim = torch.from_numpy(rng.standard_normal((700, 3))).to(cuda, dtype)
+    before = dict(dia_kernel.DIA_SPMV.counts)
+    yre, yim = tb.lincomb_apply_pair(Wre, Wim)
+    torch.cuda.synchronize()
+    assert dia_kernel.DIA_SPMV.counts["dia_lincomb_pair"] == (
+        before["dia_lincomb_pair"] + 1)
+    assert dia_kernel.DIA_SPMV.counts["dia_lincomb"] == before["dia_lincomb"]
+    assert torch.equal(yre, tb.lincomb_apply(Wre))
+    assert torch.equal(yim, tb.lincomb_apply(Wim))
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(tb.data, tb.offsets, Wre,
+                                                 Wim)
+    assert rel_err(yre.cpu().numpy(), pre.cpu().numpy()) < rtol
+    assert rel_err(yim.cpu().numpy(), pim.cpu().numpy()) < rtol
+    with pytest.raises(TypeError):
+        dia_kernel.dia_lincomb_pair(tb.data, tb.offsets_dev, Wre,
+                                    Wim.to(torch.float16))
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_kernel.dia_lincomb_pair(tb.data, tb.offsets_dev, Wre,
+                                    Wim.T.contiguous().T)
+
+
+@pytest.mark.cuda
+def test_chip_refine_backend_on_the_card_matches_host(cuda):
+    """``newton_refine(backend="chip")`` on the card (float32 factors +
+    float64 refinement) against the host backend: the same eigenvalues to rel
+    1e-9, backward errors at the float64 floor."""
+    import neptpu_torch
+
+    nep = neptpu_torch.nep_gallery("waveguide", nx=29, nz=21,
+                                   benchmark_problem="JARLEBRING",
+                                   neptype="SPMF", device=cuda)
+    mats, fv = collect_spmf_terms(nep)
+    meas = backward_errmeasure(mats, fv, spmf_fun_scalars)
+    lams, Q = iar_real_spmf(nep, sigma=-3 - 3.5j, maxit=18, neigs=4,
+                            tol=1e-2, dtype=torch.float32, errmeasure=meas,
+                            device=cuda)
+    out = {b: newton_refine(mats, fv, lams, Q, nsweeps=4, tol=1e-11, ir=3,
+                            errmeasure=meas, backend=b, device=cuda)
+           for b in ("chip", "host")}
+    assert np.all(out["chip"][2] < 1e-10) and np.all(out["host"][2] < 1e-10)
+    assert np.max(np.abs(out["chip"][0] - out["host"][0])
+                  / np.abs(out["host"][0])) < 1e-9
 
 
 @pytest.mark.cuda
@@ -79,7 +135,7 @@ def test_small_slice_on_the_card_matches_cpu(cuda):
     out = {}
     # the CPU reference returns every converged pair (neigs above the count)
     for dev, dt, neigs, tol, every in ((cuda, torch.float32, 6, 1e-5, 20),
-                                       ("cpu", torch.float64, 16, 1e-10,
+                                       (CPU, torch.float64, 16, 1e-10,
                                         None)):
         nep = _gun_from_matrices(*ops, device=dev)
         mats, fv = collect_spmf_terms(nep)

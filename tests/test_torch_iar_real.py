@@ -8,7 +8,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_helpers import (SMALL_GAMMA, SMALL_SIGMA, rel_err,
+from torch_port_helpers import (CPU, SMALL_GAMMA, SMALL_SIGMA, rel_err,
                                 small_gun_like, to_spec)
 
 from neptpu.models.gallery.nlevp import _gun_from_matrices as jax_gun
@@ -30,7 +30,7 @@ M_BASIS = 20
 @pytest.fixture(scope="module")
 def gun():
     ops = small_gun_like()
-    mats, fv = tspmf.collect_spmf_terms(_gun_from_matrices(*ops))
+    mats, fv = tspmf.collect_spmf_terms(_gun_from_matrices(*ops, device=CPU))
     _, jfv = jspmf.collect_spmf_terms(jax_gun(*ops))
     return mats, fv, jfv
 
@@ -98,11 +98,12 @@ def test_scan_chunk_reproduces_jax_hessenberg(gun, scaled):
     start = [np.asarray(x) for x in carry]
     jout = jiar._scan_chunk(jbank, m, 10, jnp.asarray(6), carry, *jargs, **jkw)
 
-    tcarry = carry_from_arrays(*start)
+    tcarry = carry_from_arrays(*start, device=CPU)
     tout = tiar._scan_chunk(
-        bank_from_arrays(to_spec(jbank)), m, 10, 6, tcarry,
+        bank_from_arrays(to_spec(jbank), device=CPU), m, 10, 6, tcarry,
         torch.from_numpy(Cre), torch.from_numpy(Cim), 0.0, 0.0,
-        shift_solver_from_arrays(to_spec(jsolver)), scaled=scaled,
+        shift_solver_from_arrays(to_spec(jsolver), device=CPU),
+        scaled=scaled,
         inv_theta=1.0 / theta)
     Hre, Him = tout[2].numpy(), tout[3].numpy()
     assert rel_err(Hre, np.asarray(jout[2])) < 1e-10

@@ -12,6 +12,12 @@ import neptpu_torch
 import neptpu_torch.interop
 import neptpu_torch.ops.dia_kernel
 import neptpu_torch.solvers.refine
+import neptpu_torch.models.gallery.waveguide
+import neptpu_torch.ops.partitioned
+from neptpu_torch.solvers.refine import newton_refine, resinv_refine
+from neptpu_torch.ops.partitioned import BatchedShiftSMW
+nep = neptpu_torch.nep_gallery('waveguide', nx=5, nz=3, neptype='SPMF',
+                               device='cpu')
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'neptpu'))
 print(','.join(bad))

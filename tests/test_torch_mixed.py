@@ -6,7 +6,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_helpers import rel_err, small_gun_like, to_spec
+from torch_port_helpers import CPU, rel_err, small_gun_like, to_spec
 
 from neptpu.models.gallery.nlevp import _gun_from_matrices as jax_gun
 from neptpu.ops.mixed import make_mixed_bank as jax_make_mixed_bank
@@ -21,7 +21,7 @@ from neptpu_torch.solvers.spmf_real import collect_spmf_terms
 @pytest.fixture(scope="module")
 def gun_terms():
     ops = small_gun_like()
-    return collect_spmf_terms(_gun_from_matrices(*ops)), jax_collect(
+    return collect_spmf_terms(_gun_from_matrices(*ops, device=CPU)), jax_collect(
         jax_gun(*ops))
 
 
@@ -38,7 +38,7 @@ def test_collected_terms_match_jax(gun_terms):
 def test_mixed_bank_structure_matches_jax(gun_terms):
     (mats, _), _ = gun_terms
     jb = jax_make_mixed_bank(mats, dtype=np.float64)
-    tb = make_mixed_bank(mats, dtype=np.float64)
+    tb = make_mixed_bank(mats, dtype=np.float64, device=CPU)
     assert isinstance(tb.inner, DiaTermBank)
     assert tb.inner.offsets == jb.inner.offsets
     assert (tb.main_idx, tb.tidx_r, tb.tidx_i) == (jb.main_idx, jb.tidx_r,
@@ -57,8 +57,8 @@ def test_mixed_bank_structure_matches_jax(gun_terms):
 def test_lincomb_apply_split_matches_jax(gun_terms, route):
     (mats, _), _ = gun_terms
     jb = jax_make_mixed_bank(mats, dtype=np.float64)
-    tb = (make_mixed_bank(mats, dtype=np.float64) if route == "native"
-          else bank_from_arrays(to_spec(jb)))
+    tb = (make_mixed_bank(mats, dtype=np.float64, device=CPU)
+          if route == "native" else bank_from_arrays(to_spec(jb), device=CPU))
     rng = np.random.default_rng(11)
     n, m = jb.n, jb.nterms
     Wre = rng.standard_normal((n, m))

@@ -7,7 +7,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_helpers import SMALL_SIGMA, rel_err, small_gun_like
+from torch_port_helpers import CPU, SMALL_SIGMA, rel_err, small_gun_like
 
 import neptpu
 from neptpu.models.gallery.nlevp import _gun_from_matrices as jax_gun
@@ -23,7 +23,7 @@ from neptpu_torch.solvers.spmf_real import collect_spmf_terms
 @pytest.fixture(scope="module")
 def neps():
     ops = small_gun_like()
-    return _gun_from_matrices(*ops), jax_gun(*ops)
+    return _gun_from_matrices(*ops, device=CPU), jax_gun(*ops)
 
 
 def _dense(M):
@@ -78,7 +78,7 @@ def test_mm_matches_jax(neps):
 def test_full_size_gun_like_operands_match_jax():
     """The gallery reads the gun W1/W2 data by file path and builds the same
     four operands as the JAX package (n = 9956; host construction only)."""
-    mats, fv = collect_spmf_terms(neptpu_torch.nep_gallery("gun_like"))
+    mats, fv = collect_spmf_terms(neptpu_torch.nep_gallery("gun_like", device=CPU))
     jmats, jfv = jax_collect(neptpu.nep_gallery("gun_like"))
     assert mats[0].shape == (9956, 9956) and len(mats) == len(jmats) == 4
     for A, B in zip(mats, jmats):
@@ -96,7 +96,7 @@ def test_term_banks_match_jax(fmt):
 
     K, M, _, _ = small_gun_like(nx=12)
     mats = [K, -M, (0.5 * K + M).tocsr()]
-    tb = make_term_bank(mats, fmt=fmt)
+    tb = make_term_bank(mats, fmt=fmt, device=CPU)
     jb = jax_make_term_bank(mats, fmt=fmt)
     assert type(tb).__name__ == type(jb).__name__
     n = K.shape[0]

@@ -6,7 +6,7 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_helpers import (SMALL_SIGMA, rel_err, small_gun_like,
+from torch_port_helpers import (CPU, SMALL_SIGMA, rel_err, small_gun_like,
                                 to_spec)
 
 from neptpu.models.gallery.nlevp import _gun_from_matrices as jax_gun
@@ -23,7 +23,7 @@ from neptpu_torch.solvers.spmf_real import collect_spmf_terms
 @pytest.fixture(scope="module")
 def terms():
     ops = small_gun_like()
-    return collect_spmf_terms(_gun_from_matrices(*ops)), jax_collect(
+    return collect_spmf_terms(_gun_from_matrices(*ops, device=CPU)), jax_collect(
         jax_gun(*ops))
 
 
@@ -65,11 +65,12 @@ def _build(mod, kind, parts, to_dev):
     """InterleavedSMW over the named banded base, from identical host parts."""
     strips, offs, Lc, Uc = parts
     rstrips, roffs = interleave_complex_banded(strips, offs)
+    kw = {"device": CPU} if mod is tpart else {}
     if kind == "thomas":
-        base = mod.BlockTridiagSolver(rstrips, roffs, mode="lu")
+        base = mod.BlockTridiagSolver(rstrips, roffs, mode="lu", **kw)
     else:
         base = mod.PartitionedBandedSolver(rstrips, roffs,
-                                           mode=kind.split("-")[1])
+                                           mode=kind.split("-")[1], **kw)
     Lh, Uh = tpart.complex_lowrank_to_half(Lc, Uc)
     return mod.InterleavedSMW(base, to_dev(Lh), to_dev(Uh))
 
@@ -82,7 +83,7 @@ def test_solve_pair_matches_jax(terms, kind, route):
     parts = tpart.assemble_shift_parts(mats, fv, SMALL_SIGMA)
     js = _build(jpart, kind, parts, jnp.asarray)
     ts = (_build(tpart, kind, parts, torch.from_numpy) if route == "native"
-          else shift_solver_from_arrays(to_spec(js)))
+          else shift_solver_from_arrays(to_spec(js), device=CPU))
     n = mats[0].shape[0]
     rng = np.random.default_rng(21)
     zre, zim = rng.standard_normal((n, 3)), rng.standard_normal((n, 3))
@@ -101,7 +102,8 @@ def test_solve_pair_matches_jax(terms, kind, route):
     (torch.float32, "PartitionedBandedSolver")])  # 'inv', the card's path
 def test_build_spmf_shift_solver_selects_like_jax(terms, dtype, base):
     (mats, fv), (_, jfv) = terms
-    ts = tpart.build_spmf_shift_solver(mats, fv, SMALL_SIGMA, dtype=dtype)
+    ts = tpart.build_spmf_shift_solver(mats, fv, SMALL_SIGMA, dtype=dtype,
+                                       device=CPU)
     js = jpart.build_spmf_shift_solver(
         mats, jfv, SMALL_SIGMA,
         dtype=jnp.float64 if dtype == torch.float64 else jnp.float32)
@@ -130,7 +132,7 @@ def test_dense_block_lu_fallback_matches_jax(terms):
     jspmf = importlib.import_module("neptpu.solvers.spmf_real")
     (mats, fv), (_, jfv) = terms
     ts = DenseBlockLU(*spmf_shift_block_lu(mats, fv, SMALL_SIGMA,
-                                           dtype=torch.float64))
+                                           dtype=torch.float64, device=CPU))
     js = jiar.DenseBlockLU(*jspmf.spmf_shift_block_lu(
         mats, jfv, SMALL_SIGMA, dtype=jnp.float64))
     n = mats[0].shape[0]

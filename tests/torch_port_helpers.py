@@ -8,6 +8,10 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+# the port's entry points default to the card (``neptpu_torch.config``); the
+# parity tests run on the CPU and say so at every call
+CPU = "cpu"
+
 # tier-1 runs several pytest workers on one host: one intra-op thread each
 torch.set_num_threads(1)
 
