@@ -13,7 +13,10 @@ Phases, a few informative lines each (any failure exits non-zero):
    headline shape of ``bench.py``, a synthetic 211-diagonal bank) and the
    re/im pair kernel at the gun_like, wep, wep_large and headline shapes (each
    waveguide bank the main paths build is held against the shape checked
-   here) — max
+   here); both again at the delay problem's shape (n = 1e4, 2 terms, the 9
+   offsets of ``dep_symm_double``) in float32 and float64; and the bfloat16
+   kernels (bf16 bank and operands, float32 sums and result), single and
+   pair, at the headline and the delay shape — max
    relative error against the twin within the stated tolerance, the pair
    equal to two single launches, median CUDA-event times of kernel, twin and
    the nearest library calls (a ``torch.sparse`` CSR product of the stacked
@@ -21,7 +24,9 @@ Phases, a few informative lines each (any failure exits non-zero):
 4. main paths, through the entry points a user calls, each with the kernel
    launch counts set to 0 just before and read just after:
    * SpMV headline: a DIA bank at n = 1e6 (4 terms x 9 diagonals) applied
-     through ``DiaTermBank.lincomb_apply``;
+     through ``DiaTermBank.lincomb_apply``, in float32 and as a bfloat16
+     bank (single and re/im pair apply), each row within its rounding bound
+     of the scipy product;
    * gun_like (n = 9956): float32 complex-as-real IAR (SPIKE + SMW shifted
      solve, kernel-backed bank apply) -> cluster -> Newton refinement to
      backward error 1e-9 (driven toward 1e-11), the ``bench.py`` protocol;
@@ -37,6 +42,18 @@ Phases, a few informative lines each (any failure exits non-zero):
    * wep_large (n = 13915, 4 shifts) at full size, the same way: >= 10
      distinct pairs at 1e-9;
    every scan step must launch the pair kernel at least once;
+   * dep (``dep_symm_double``, n = 1e4, delays 0 and 2), the protocol of
+     ``benchmarks/time_to_tol.py``: float32 ``iar_real`` then ``tiar_real``
+     at sigma = -1, all ``maxit`` Ritz pairs measured on the host in float64;
+     each >= 10 pairs at backward error <= 1e-6, the two agreeing on their
+     10 best eigenvalues to rel 1e-5 (modulo conjugation), exactly one pair
+     launch and no single launch per scan step; then the bank itself applied
+     to the best Ritz vector in float32, float64 and bfloat16;
+   * dep-protocol, the same problem through the protocol solvers on the
+     card: ``tiar`` and ``iar`` (complex128, dense LU, maxit 30) and
+     ``resinv``/``augnewton``/``quasinewton``/``newton`` from one of
+     ``iar_real``'s pairs perturbed by 1e-3, each converging to its default
+     tolerance onto an eigenvalue ``iar_real`` found (rel 1e-6);
 5. refine-chip: the gun_like candidates refined again on the card
    (``BatchedShiftSMW``: float32 factors + float64 iterative refinement)
    against the host backend: >= 10 distinct at 1e-9, eigenvalues within rel
@@ -83,10 +100,21 @@ WEP_LARGE = dict(nx=119, nz=115,
 # of the chip refine backend's shifts, at most this many per phase may fail
 # the device solver's validation and be solved by a host splu instead
 MAX_HOST_FALLBACK = 2
+# the delay problem of benchmarks/time_to_tol.py:55-59 (dep_symm_double on
+# an nside x nside grid; sigma, maxit, pairs wanted, backward-error tolerance)
+DEP = dict(nside=100, sigma=-1.0, maxit=60, k=10, tol=1e-6)
 DEVICE = "cuda"  # every phase runs on the card
 # published peaks of one H100 SXM (NVIDIA data sheet): the bounds' rates
 PEAK_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}  # vector rates
+# vector rates; the bfloat16 kernels widen to float32 before multiplying
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 67e12}
+
+
+def dep_bank_shape(nside):
+    """(m, offsets, n) of ``dep_symm_double``'s DIA bank: two terms on the
+    nine-point stencil of ``kron(LL, LL)`` on the nside x nside grid."""
+    w = nside
+    return 2, (-w - 1, -w, -w + 1, -1, 0, 1, w - 1, w, w + 1), w * w
 
 
 def wep_bank_shape(cfg):
@@ -201,9 +229,12 @@ def _median_ms(torch, fn, reps=20, inner=10):
 def _bound(n, m, ndiag, noperands, itemsize, dtype_name):
     """Least time (ms) for the fused apply of one (m, ndiag, n) bank to
     ``noperands`` (n, m) operands: each input read once, each output written
-    once, against the published memory rate; 2 flops per bank word and
-    operand against the published vector rate.  Returns (ms, by, bytes)."""
-    nbytes = (m * ndiag * n + noperands * (n * m + n)) * itemsize
+    once (the bfloat16 kernels write float32), against the published memory
+    rate; 2 flops per bank word and operand against the published vector
+    rate.  Returns (ms, by, bytes)."""
+    out_size = 4 if dtype_name == "bfloat16" else itemsize
+    nbytes = ((m * ndiag * n + noperands * n * m) * itemsize
+              + noperands * n * out_size)
     flops = 2 * m * ndiag * n * noperands
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
@@ -232,11 +263,25 @@ def _stacked_csr(torch, data, offs):
 
 def _library_times(torch, data, offs, W, Wim, y_plain, tol):
     """(single_ms, pair_ms) of the ``torch.sparse`` CSR product on the same
-    operands, checked against the plain result first."""
-    A = _stacked_csr(torch, data, offs)
+    operands, checked against the plain result first.  (None, None) where
+    this build has no sparse CSR product for the dtype (bfloat16)."""
     w1 = W.reshape(-1)
     w2 = torch.stack([W.reshape(-1), Wim.reshape(-1)], dim=1)
-    rel = float((A @ w1 - y_plain).abs().max() / y_plain.abs().max())
+    try:
+        A = _stacked_csr(torch, data, offs)
+        y_lib = (A @ w1).to(y_plain.dtype)
+        A @ w2
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as e:
+        if data.dtype != torch.bfloat16:
+            raise
+        print(f"[kernel] no torch.sparse CSR product in {data.dtype} on this "
+              f"build ({str(e).splitlines()[0][:80]}): library call none",
+              flush=True)
+        return None, None
+    if data.dtype == torch.bfloat16:
+        tol = 5e-2  # the library rounds its result (and may sum) in bf16
+    rel = float((y_lib - y_plain).abs().max() / y_plain.abs().max())
     check(rel <= tol, f"library CSR product disagrees with the plain "
                       f"version ({rel:.3e})")
     reps, inner = (5, 5) if data.shape[2] > 100_000 else (20, 10)
@@ -252,7 +297,12 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
     w = int(round(np.sqrt(HEADLINE_N)))
     head_offs = (-w - 1, -w, -w + 1, -1, 0, 1, w - 1, w, w + 1)
     wm, wl = wep_bank_shape(WEP), wep_bank_shape(WEP_LARGE)
-    # name, data (None: random), offsets, n, m, tolerance, check the pair too
+    dp = dep_bank_shape(DEP["nside"])
+    bf16 = torch.bfloat16
+    # name, data (None: random) or dtype, offsets, n, m, tolerance (relative
+    # to max |y|: a few roundings of the accumulator's dtype per row, sums
+    # reordered — the bfloat16 kernels and their twins both sum exact
+    # products in float32), check the pair too
     shapes = [
         ("gun_like f32", gun_bank.data.to(torch.float32), gun_bank.offsets,
          None, None, 1e-5, True),
@@ -262,6 +312,10 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
         ("wide f32", None, tuple(range(-105, 106)), 11655, 2, 1e-5, False),
         ("gun_like f64", gun_bank.data.to(torch.float64), gun_bank.offsets,
          None, None, 1e-12, True),
+        ("dep f32", torch.float32, dp[1], dp[2], dp[0], 1e-5, True),
+        ("dep f64", torch.float64, dp[1], dp[2], dp[0], 1e-12, True),
+        ("headline bf16", bf16, head_offs, HEADLINE_N, HEADLINE_M, 1e-5, True),
+        ("dep bf16", bf16, dp[1], dp[2], dp[0], 1e-5, True),
     ]
     # the launch floor: an empty kernel through the same ctypes route
     floor_ms = _median_ms(torch, lambda: dia_kernel.empty_launch(DEVICE))
@@ -269,16 +323,17 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
           "call (ctypes + launch, back to back)", flush=True)
     rows = {}
     for name, data, offs, n, m, tol, pair in shapes:
-        if data is None:
+        if data is None or isinstance(data, torch.dtype):
             data = torch.randn((m, len(offs), n), generator=gen,
-                               device=DEVICE, dtype=torch.float32)
+                               device=DEVICE, dtype=torch.float32).to(
+                data or torch.float32)
         data = data.contiguous()
         m, ndiag, n = data.shape
         dtn = str(data.dtype).split(".")[1]
         W = torch.randn((n, m), generator=gen, device=DEVICE,
-                        dtype=data.dtype)
+                        dtype=torch.float32).to(data.dtype)
         Wim = torch.randn((n, m), generator=gen, device=DEVICE,
-                          dtype=data.dtype)
+                          dtype=torch.float32).to(data.dtype)
         offs_dev = torch.tensor(offs, dtype=torch.int32, device=DEVICE)
         y = dia_kernel.dia_lincomb(data, offs_dev, W)
         torch.cuda.synchronize()
@@ -286,6 +341,8 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
         abs_err = float((y - y_plain).abs().max())
         rel = abs_err / float(y_plain.abs().max())
         check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
+        check(y.dtype == dia_kernel.result_dtype(data.dtype),
+              f"{name}: result in {y.dtype}")
         ms = _median_ms(torch, lambda: dia_kernel.dia_lincomb(data, offs_dev,
                                                               W))
         plain_ms = _median_ms(torch, lambda: dia_kernel.dia_lincomb_plain(
@@ -344,7 +401,8 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
               f"({pbytes / pair_ms / 1e6:.1f} GB/s) 2x single "
               f"{two_ms * 1e3:.2f} us plain {pair_plain_ms * 1e3:.2f} us "
               f"bound {pb_ms * 1e3:.3f} us by {pby} ({pbytes} B) sparse-CSR "
-              f"{lib_pair_ms * 1e3:.2f} us CSR-bank x2 "
+              f"{'%.2f us' % (lib_pair_ms * 1e3) if lib_pair_ms else 'n/a'} "
+              "CSR-bank x2 "
               f"{'%.2f us' % (csr_ms * 1e3) if csr_ms else 'n/a'}",
               flush=True)
         check(p_rel <= tol, f"{name}: pair kernel disagrees with its twin "
@@ -423,7 +481,45 @@ def phase_spmv_path(torch, dia_kernel):
     check(counts["dia_lincomb"] >= ncalls + 1,
           f"headline path launched the kernel {counts['dia_lincomb']} times "
           f"in {ncalls + 1} applies")
-    return counts
+
+    # the same bank at half width: bfloat16 values and operand, float32 sums
+    bank16 = bank.astype(torch.bfloat16)
+    W16, W16b = W.to(torch.bfloat16), W.flip(0).to(torch.bfloat16)
+    y16 = bank16.lincomb_apply(W16)
+    torch.cuda.synchronize()
+    a.record()
+    for _ in range(ncalls):
+        y16 = bank16.lincomb_apply(W16)
+    b.record()
+    b.synchronize()
+    ms16 = a.elapsed_time(b) / ncalls
+    yre, yim = bank16.lincomb_apply_pair(W16, W16b)
+    torch.cuda.synchronize()
+    entry = dict(dia_kernel.DIA_SPMV.entry_counts)
+    # rounding bank and operand to bfloat16 moves each product by at most
+    # 2^-8 of itself (2^-9 per factor): |dy[r]| <= 2^-7 sum |data W| holds
+    # with room for the float32 sum
+    worst = 0.0
+    for yk, Wk in ((y16, W), (yre, W), (yim, W.flip(0))):
+        Wh = Wk.cpu().numpy().astype(np.float64)
+        refk = sum(A @ Wh[:, i] for i, A in enumerate(mats))
+        room = sum(abs(A) @ np.abs(Wh[:, i]) for i, A in enumerate(mats))
+        worst = max(worst, float(np.max(
+            np.abs(yk.cpu().numpy() - refk) / np.maximum(room, 1e-30))))
+    print(f"[main] spmv headline bf16 bank ({bank16.data.dtype} -> "
+          f"{y16.dtype}): {ms16 * 1e3:.2f} us per apply = "
+          f"{nnz / ms16 / 1e6:.2f} Gnnz/s ({ms / ms16:.2f}x the float32 "
+          f"apply), single and pair max |dy| / sum|data W| per row "
+          f"{worst:.3e} (bound 2^-7 = {2**-7:.3e}), launches "
+          f"{ {k: v for k, v in entry.items() if v} }", flush=True)
+    check(y16.dtype == torch.float32 and yre.dtype == torch.float32,
+          "bf16 apply did not return float32")
+    check(worst <= 2**-7, f"bf16 headline apply off by {worst:.3e} of its "
+                          "row's sum |data W| (bound 2^-7)")
+    check(entry["dia_lincomb_bf16"] == ncalls + 1
+          and entry["dia_lincomb_pair_bf16"] == 1,
+          f"bf16 headline applies launched {entry}")
+    return {"counts": dict(dia_kernel.DIA_SPMV.counts), "entry": entry}
 
 
 def run_time_to_tol(torch, dia_kernel, key, make_nep, sigma, gamma=1.0,
@@ -480,6 +576,7 @@ def run_time_to_tol(torch, dia_kernel, key, make_nep, sigma, gamma=1.0,
     sel = distinct_below_tol(lams, errs, tol_gate)
     wall = time.perf_counter() - t_start
     counts = dict(dia_kernel.DIA_SPMV.counts)
+    entry = dict(dia_kernel.DIA_SPMV.entry_counts)
     k_done = [int(i["k_done"]) for i in per]
 
     def tsum(name):
@@ -532,7 +629,8 @@ def run_time_to_tol(torch, dia_kernel, key, make_nep, sigma, gamma=1.0,
               f"{max(re_[rsel]) if rsel else float('nan'):.3e} "
               f"stalled_at={['%.3e' % e for e in sorted(re_) if e >= tol_gate]} "
               f"t_refine={time.perf_counter() - t0:.3f} s", flush=True)
-    return {"counts": counts, "mats": mats, "fv": fv, "backward": backward,
+    return {"counts": counts, "entry": entry, "mats": mats, "fv": fv,
+            "backward": backward,
             "cand": cand, "t_scan": tsum("t_scan"),
             "t_check": tsum("t_check"), "k_done": k_done}
 
@@ -581,6 +679,250 @@ def phase_wep_bank_share(torch, key, cfg, out):
           f"{(full - main) * 1e3:.1f} us = {100 * (full - main) / full:.1f}% "
           f"of the apply, {100 * (full - main) / step:.1f}% of a "
           f"{step:.3f} ms scan step", flush=True)
+
+
+def _conj_gap(x, pool):
+    """Relative distance from ``x`` to the nearest of ``pool`` or its
+    conjugates (the delay problem is real: its spectrum is closed under
+    conjugation, and a solver may land on either member of a pair)."""
+    pool = np.asarray(pool)
+    return float(min(np.min(np.abs(pool - x)),
+                     np.min(np.abs(pool - np.conj(x)))) / abs(x))
+
+
+def dep_problem(nside):
+    """``benchmarks/time_to_tol.py``'s problem on the card: the gallery's
+    ``dep_symm_double`` with its bank rebuilt in float32, the host backward
+    error of that script, and the float64 gallery problem."""
+    from neptpu_torch import DEP, nep_gallery
+    from neptpu_torch.ops.dia import DiaTermBank
+    from neptpu_torch.solvers.iar_real import _dep_host_resnorm
+
+    nep0 = nep_gallery("dep_symm_double", nside, device=DEVICE)
+    mats = nep0.bank.host_csr_terms()
+    bank = DiaTermBank.from_matrices(mats, dtype=np.float32, device=DEVICE)
+    nep = DEP(None, tauv=nep0.tauv, bank=bank)
+    fro = [float(np.sqrt((A.multiply(A.conj())).sum()).real) for A in mats]
+    taus = [float(t) for t in nep.tauv]
+    n = nep.n
+
+    def backward_of(problem):
+        """``time_to_tol.py:77-84``'s measure on ``problem``'s own operands
+        (the float32-valued bank or the gallery's float64 one)."""
+        rn = _dep_host_resnorm(problem)
+
+        def backward(lam, q):
+            scale = abs(lam) * np.sqrt(n)
+            for t, f in zip(taus, fro):
+                scale += abs(np.exp(-t * lam)) * f
+            return rn(lam, q) / scale
+
+        return backward
+
+    return nep, nep0, mats, backward_of
+
+
+def phase_dep(torch, dia_kernel, cfg):
+    """Main path of the delay family: ``iar_real`` then ``tiar_real`` in
+    float32 at the settings of ``benchmarks/time_to_tol.py`` (all ``maxit``
+    Ritz pairs returned, their backward errors measured on the host in
+    float64), then the bank applied in its three precisions."""
+    from neptpu_torch import iar_real, tiar_real
+
+    t0 = time.perf_counter()
+    nep, nep0, mats, backward_of = dep_problem(cfg["nside"])
+    backward = backward_of(nep)
+    t_problem = time.perf_counter() - t0
+    bank = nep.bank
+    built = (bank.nterms, tuple(bank.offsets), bank.n)
+    check(type(bank).__name__ == "DiaTermBank"
+          and built == dep_bank_shape(cfg["nside"]),
+          f"dep: the bank is {type(bank).__name__} (m, offsets, n) = {built},"
+          f" the kernel checks ran at {dep_bank_shape(cfg['nside'])}")
+    out = {"nep": nep, "nep0": nep0, "backward64": backward_of(nep0),
+           "entry": {}}
+    m, k, tol = cfg["maxit"], cfg["k"], cfg["tol"]
+    for name, solver in (("iar_real", iar_real), ("tiar_real", tiar_real)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dia_kernel.DIA_SPMV.reset_counts()
+        t0 = time.perf_counter()
+        lams, Q, info = solver(nep, sigma=cfg["sigma"], maxit=m, neigs=m,
+                               tol=np.inf, dtype=torch.float32,
+                               return_info=True, device=DEVICE)
+        torch.cuda.synchronize()
+        t_solve = time.perf_counter() - t0
+        entry = dict(dia_kernel.DIA_SPMV.entry_counts)
+        counts = dict(dia_kernel.DIA_SPMV.counts)
+        t1 = time.perf_counter()
+        errs = np.array([backward(complex(l), Q[:, i])
+                         for i, l in enumerate(lams)])
+        t_err = time.perf_counter() - t1
+        order = np.argsort(errs)
+        lams, Q, errs = np.asarray(lams)[order], Q[:, order], errs[order]
+        nconv = int(np.sum(errs < tol))
+        print(f"[dep] {name} n={nep.n} terms={bank.nterms} ndiag="
+              f"{bank.ndiag} sigma={cfg['sigma']} maxit={m} float32: k_done="
+              f"{info['k_done']} scaled={info.get('scaled')} ritz_pairs="
+              f"{len(lams)} converged(backward<={tol:g})={nconv} (need {k}) "
+              f"best10_max_backward={errs[:k].max():.3e} t_factorize="
+              f"{info['t_factorize']:.3f} s t_scan={info['t_scan']:.3f} s "
+              f"t_check={info['t_check']:.3f} s t_host_errors={t_err:.3f} s "
+              f"wall={t_solve + t_err:.3f} s launches="
+              f"{ {k_: v for k_, v in entry.items() if v} } peak_device_mem="
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        check(bool(np.isfinite(lams).all() and np.isfinite(errs).all()),
+              f"dep {name}: non-finite Ritz pairs")
+        check(Q.shape == (nep.n, len(lams)), f"dep {name}: Q is {Q.shape}")
+        check(nconv >= k, f"dep {name}: only {nconv} Ritz pairs at backward "
+                          f"error <= {tol:g} (need {k})")
+        check(entry["dia_lincomb_pair_f32"] == info["k_done"]
+              and counts["dia_lincomb"] == 0,
+              f"dep {name}: {info['k_done']} scan steps launched {entry} "
+              "(need one float32 pair launch per step and no single launch)")
+        out[name] = (lams, Q, errs, nconv)
+        out["entry"][name] = entry
+    print(f"[dep] problem built in {t_problem:.3f} s; eigenvalues (best 10 "
+          f"of iar_real): {np.array2string(out['iar_real'][0][:k], precision=8)}",
+          flush=True)
+    # the two solvers agree on their best pairs (the other's converged set)
+    gaps = []
+    for a, b in (("iar_real", "tiar_real"), ("tiar_real", "iar_real")):
+        pool = out[b][0][: out[b][3]]
+        gaps += [_conj_gap(x, pool) for x in out[a][0][:k]]
+    print(f"[dep] iar_real vs tiar_real, best {k} of each against the "
+          f"other's converged pairs: max rel eigenvalue gap {max(gaps):.3e} "
+          "(gate 1e-5, modulo conjugation)", flush=True)
+    check(max(gaps) <= 1e-5, f"dep: iar_real and tiar_real eigenvalues "
+                             f"differ by rel {max(gaps):.3e} (> 1e-5)")
+
+    # the bank itself in its three precisions, applied to the best Ritz
+    # vector: single apply on the real part, pair apply on re/im, against
+    # the scipy terms
+    dia_kernel.DIA_SPMV.reset_counts()
+    lam, q = out["iar_real"][0][0], out["iar_real"][1][:, 0]
+    w = np.exp(-nep.tauv * lam)  # term weights at lam
+    W = q[:, None] * w[None, :]
+    ref = sum(A @ W[:, i] for i, A in enumerate(mats))
+    room = sum(abs(A) @ np.abs(W[:, i]) for i, A in enumerate(mats))
+    for dt, bound in ((torch.float32, 2**-20), (torch.float64, 2**-48),
+                      (torch.bfloat16, 2**-7)):
+        # (the float64 bank is the gallery problem's own, not a widened copy)
+        bk = out["nep0"].bank if dt == torch.float64 else bank.astype(dt)
+        Wre = torch.as_tensor(W.real, device=DEVICE).to(dt)
+        Wim = torch.as_tensor(W.imag, device=DEVICE).to(dt)
+        y1 = bk.lincomb_apply(Wre)
+        yre, yim = bk.lincomb_apply_pair(Wre, Wim)
+        torch.cuda.synchronize()
+        y = yre.cpu().numpy().astype(np.float64) + 1j * yim.cpu().numpy()
+        off = float(np.max(np.abs(y - ref) / np.maximum(room, 1e-300)))
+        check(torch.equal(y1, yre), f"dep bank {dt}: single and pair differ")
+        print(f"[dep] bank apply in {dt} -> {yre.dtype}: max |dy| / "
+              f"sum|data W| per row {off:.3e} (bound {bound:.3e})",
+              flush=True)
+        check(off <= bound, f"dep bank apply in {dt} off by {off:.3e} of "
+                            f"its row's sum |data W| (bound {bound:.3e})")
+    out["entry"]["bank"] = dict(dia_kernel.DIA_SPMV.entry_counts)
+    return out
+
+
+def phase_dep_protocol(torch, dia_kernel, cfg, dep):
+    """The same delay problem through the protocol solvers on the card, in
+    complex128 on the gallery's float64 operands.
+
+    The eigenvalues they converge to are held to rel 1e-6 against those
+    ``iar_real`` finds in float64 on the same operands.  The float32 run of
+    the ``[dep]`` phase gives the starting pairs; how far its eigenvalues are
+    from the float64 ones is printed, not gated: with entries near h^-4 ~
+    1e7, rounding the bank to float32 and factoring M(sigma) in float32 move
+    the eigenvalues near -1 by more than 1e-6 (about 2e-5 at n = 3600), though
+    their backward errors are 1e-9."""
+    from neptpu_torch import (FactorizeLinSolverCreator,
+                              NoConvergenceException, augnewton, iar,
+                              iar_real, newton, quasinewton, resinv, tiar)
+
+    nep = dep["nep0"]
+    dia_kernel.DIA_SPMV.reset_counts()
+    t0 = time.perf_counter()
+    l64, Q64, info = iar_real(nep, sigma=cfg["sigma"], maxit=cfg["maxit"],
+                              neigs=cfg["maxit"], tol=np.inf,
+                              dtype=torch.float64, return_info=True,
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    e64 = np.array([dep["backward64"](complex(l), Q64[:, i])
+                    for i, l in enumerate(l64)])
+    found = np.asarray(l64)[e64 < 1e-12]
+    entry64 = dict(dia_kernel.DIA_SPMV.entry_counts)
+    gap32 = sorted(_conj_gap(x, np.asarray(l64))
+                   for x in dep["iar_real"][0][: cfg["k"]])
+    print(f"[dep-protocol] iar_real float64 maxit={cfg['maxit']}: "
+          f"{len(found)} Ritz pairs at backward error < 1e-12 in "
+          f"{time.perf_counter() - t0:.3f} s (t_factorize "
+          f"{info['t_factorize']:.3f} s, t_scan {info['t_scan']:.3f} s), "
+          f"launches { {k: v for k, v in entry64.items() if v} }; (not gated) the "
+          f"float32 run's best {cfg['k']} eigenvalues, found on the bank "
+          f"rounded to float32, lie within rel {gap32[len(gap32) // 2]:.3e} "
+          f"(median) and {gap32[-1]:.3e} (max) of this run's Ritz values",
+          flush=True)
+    check(len(found) >= cfg["k"], f"dep-protocol: float64 iar_real found "
+                                  f"only {len(found)} pairs")
+    check(entry64["dia_lincomb_pair_f64"] >= info["k_done"],
+          f"dep-protocol: float64 scan launched {entry64}")
+    torch.cuda.reset_peak_memory_stats()
+    for name, solver in (("tiar", tiar), ("iar", iar)):
+        t0 = time.perf_counter()
+        try:
+            lams, Q, _ = solver(nep, sigma=cfg["sigma"], maxit=30, neigs=4,
+                                linsolvercreator=FactorizeLinSolverCreator(),
+                                v=np.ones(nep.n), device=DEVICE)
+        except NoConvergenceException as e:
+            raise SmokeFailure(f"dep-protocol {name}: {e}")
+        torch.cuda.synchronize()
+        gaps = [_conj_gap(x, found) for x in lams]
+        print(f"[dep-protocol] {name} complex128 maxit=30 n={nep.n} "
+              f"(FactorizeLinSolver): {len(lams)} pairs at its default "
+              f"tolerance in {time.perf_counter() - t0:.3f} s, max rel gap "
+              f"to float64 iar_real's eigenvalues {max(gaps):.3e} (gate 1e-6)",
+              flush=True)
+        check(len(lams) >= 4 and Q.device.type == DEVICE
+              and max(gaps) <= 1e-6,
+              f"dep-protocol {name}: {len(lams)} pairs, gap {max(gaps):.3e}")
+    # Newton family from the best-isolated converged pair, perturbed by 1e-3
+    found32 = dep["iar_real"][0][: dep["iar_real"][3]]
+    sep = [np.min(np.abs(np.delete(found32, i) - x)) for i, x in
+           enumerate(found32)]
+    i0 = int(np.argmax(sep[: cfg["k"]]))
+    rng = np.random.default_rng(0)
+    q = dep["iar_real"][1][:, i0]
+    lam0 = complex(found32[i0]) * (1 + 1e-3)
+    v0 = q + 1e-3 * np.linalg.norm(q) / np.sqrt(nep.n) * (
+        rng.standard_normal(nep.n) + 1j * rng.standard_normal(nep.n))
+    for name, solver in (("resinv", resinv), ("augnewton", augnewton),
+                         ("quasinewton", quasinewton), ("newton", newton)):
+        t0 = time.perf_counter()
+        try:
+            lam, v = solver(nep, lam=lam0, v=v0, device=DEVICE)
+        except NoConvergenceException as e:
+            raise SmokeFailure(f"dep-protocol {name} from {lam0}: {e}; last "
+                               f"iterate {e.lam}, error {e.errmeasure}")
+        torch.cuda.synchronize()
+        gap = _conj_gap(complex(lam), found)
+        print(f"[dep-protocol] {name} from lam={lam0:.8f} (iar_real pair "
+              f"{i0}, separation {sep[i0]:.2e}): lam={complex(lam):.12f} in "
+              f"{time.perf_counter() - t0:.3f} s, rel gap to float64 "
+              f"iar_real's eigenvalues {gap:.3e} (gate 1e-6)", flush=True)
+        check(v.device.type == DEVICE and v.shape == (nep.n,)
+              and gap <= 1e-6,
+              f"dep-protocol {name}: gap {gap:.3e} to iar_real's eigenvalues")
+    entry = dict(dia_kernel.DIA_SPMV.entry_counts)
+    print(f"[dep-protocol] launches { {k: v for k, v in entry.items() if v} } "
+          f"peak_device_mem {torch.cuda.max_memory_allocated() / 2**20:.1f} "
+          "MiB", flush=True)
+    check(entry["dia_lincomb_pair_f64"] > 0,
+          "dep-protocol: compute_Mlincomb launched no float64 pair kernel")
+    return entry
+
 
 
 def phase_refine_chip(torch, gun):
@@ -700,18 +1042,25 @@ def main():
     gun_bank = nep_gallery("gun_like", device=DEVICE).nep1.bank
     rows = phase_kernel_checks(torch, dia_kernel, gun_bank)
 
-    paths = {"spmv": phase_spmv_path(torch, dia_kernel)}
+    # launches by C entry point on each main path (counts set to 0 just
+    # before a path is driven and read just after)
+    paths = {"spmv": phase_spmv_path(torch, dia_kernel)["entry"]}
     gun = run_time_to_tol(
         torch, dia_kernel, "gun_like",
         lambda: nep_gallery("gun_like", device=DEVICE), SIGMA, gamma=GAMMA,
         maxit=60, neigs=10, tol=1e-6, tol_refine=1e-11,
         pinned=GUN_LIKE_PINNED)
-    paths["gun_like"] = gun["counts"]
+    paths["gun_like"] = gun["entry"]
     for key, cfg in (("wep", WEP), ("wep_large", WEP_LARGE)):
         wep = phase_wep(torch, dia_kernel, key, cfg)
-        paths[key] = wep["counts"]
+        paths[key] = wep["entry"]
         phase_wep_bank_share(torch, key, cfg, wep)
         del wep
+    dep = phase_dep(torch, dia_kernel, DEP)
+    for key, entry in dep["entry"].items():
+        paths[f"dep {key}"] = entry
+    paths["dep-protocol"] = phase_dep_protocol(torch, dia_kernel, DEP, dep)
+    del dep
     phase_refine_chip(torch, gun)
     if args.profile:
         phase_profile(torch, args.profile, "gun_like",
@@ -723,12 +1072,41 @@ def main():
                       WEP["sigmas"][0], 1.0, 100, 8, 1e-5)
     print(f"[done] total {time.perf_counter() - t0:.3f} s", flush=True)
 
+    def launches(entries, on):
+        """Launches through the C entry points ``entries`` on the main paths
+        whose name starts with one of ``on``."""
+        return {k: sum(c[e] for e in entries) for k, c in paths.items()
+                if k.startswith(on)}
+
+    every = ("spmv", "gun_like", "wep", "dep")
+    f3264 = ("_f32", "_f64")
+    # name, kernel-check row, C entry points, main paths that hand the kernel
+    # this shape: first each wrapper at the shape of its busiest path (the
+    # single-operand kernel at the SpMV headline, the pair kernel at the
+    # wep bank) with the launches of every path, then the delay
+    # problem's shape and the bfloat16 kernels
+    table = [
+        ("dia_lincomb", "headline f32",
+         [f"dia_lincomb{x}" for x in f3264], every),
+        ("dia_lincomb_pair", "wep f32 pair",
+         [f"dia_lincomb_pair{x}" for x in f3264], every),
+        ("dia_lincomb_f32@dep", "dep f32", ["dia_lincomb_f32"], ("dep",)),
+        ("dia_lincomb_pair_f32@dep", "dep f32 pair",
+         ["dia_lincomb_pair_f32"], ("dep",)),
+        ("dia_lincomb_f64@dep", "dep f64", ["dia_lincomb_f64"], ("dep",)),
+        ("dia_lincomb_pair_f64@dep", "dep f64 pair",
+         ["dia_lincomb_pair_f64"], ("dep",)),
+        ("dia_lincomb_bf16", "headline bf16", ["dia_lincomb_bf16"],
+         ("spmv",)),
+        ("dia_lincomb_pair_bf16", "headline bf16 pair",
+         ["dia_lincomb_pair_bf16"], ("spmv",)),
+        ("dia_lincomb_bf16@dep", "dep bf16", ["dia_lincomb_bf16"], ("dep",)),
+        ("dia_lincomb_pair_bf16@dep", "dep bf16 pair",
+         ["dia_lincomb_pair_bf16"], ("dep",)),
+    ]
     kernels = []
-    # each kernel at the shape the main path hands it: the single-operand
-    # kernel at the SpMV headline, the pair kernel at the waveguide bank
-    for name, row in (("dia_lincomb", rows["headline f32"]),
-                      ("dia_lincomb_pair", rows["wep f32 pair"])):
-        by_path = {k: c[name] for k, c in paths.items()}
+    for name, key, entries, on in table:
+        row, by_path = rows[key], launches(entries, on)
         check(sum(by_path.values()) > 0,
               f"kernel {name} was launched on no main path")
         kernels.append({
@@ -741,6 +1119,7 @@ def main():
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
             "shape": f"{row['shape']} n={row['n']} m={row['m']} "
                      f"ndiag={row['ndiag']}",
+            "entry_points": entries,
             "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,25 +1,61 @@
-"""neptpu_torch — the PyTorch/CUDA port of neptpu's main eigensolver path.
+"""neptpu_torch — the PyTorch/CUDA port of neptpu.
 
-A second package beside the JAX reference ``neptpu``: the gun-class and
-waveguide SPMFs (host-built problem -> mixed term bank -> partitioned
-SPIKE + SMW shifted factorization -> complex-as-real IAR scan from one shift
-or several -> Newton refinement on the host or, batched over shifts, on the
-device), with the stacked-DIA fused multi-term SpMV as hand-written sm_90a
-CUDA kernels (``csrc/dia_spmv.cu``: one operand, or a re/im pair in one
-launch).  It imports torch, numpy and scipy — never jax or neptpu.  Entry
-points run on the card unless the caller passes ``device="cpu"``
+A second package beside the JAX reference ``neptpu``, with the same module
+paths and names:
+
+* problems: ``PEP``, ``SPMF_NEP``, ``DEP``, sums, and the gallery (gun_like,
+  wep, the delay and the random polynomial problems);
+* the compute protocol (``compute_Mder``/``compute_Mlincomb``/``compute_MM``)
+  whose hot operation, the fused multi-term apply of a banded term bank, is
+  the stacked-DIA SpMV written by hand for sm_90a (``csrc/dia_spmv.cu``: one
+  operand, or a re/im pair in one launch; float32, float64, bfloat16);
+* the complex-as-real Krylov solvers in split re/im channels (``iar_real``,
+  ``tiar_real`` for delay problems, ``iar_real_spmf``/``tiar_real_spmf`` and
+  the multishift scan for SPMFs) with their shifted factorizations (dense
+  block LU, partitioned SPIKE + SMW) and Newton refinement on the host or,
+  batched over shifts, on the device;
+* the protocol solvers (``iar``, ``tiar``, ``newton``, ``augnewton``,
+  ``resinv``, ``quasinewton``, ``newtonqr``, ``implicitdet``) with the
+  linear-solver, orthogonalization, error-measure and logger layers.
+
+It imports torch, numpy and scipy — never jax or neptpu.  Entry points run on
+the card unless the caller passes ``device="cpu"``
 (``config.default_device``).
 """
 from . import config  # noqa: F401  (switches TF32 off)
+from .core.errmeasure import (DefaultErrmeasure, EigvalReferenceErrmeasure,
+                              Errmeasure, ResidualErrmeasure,
+                              StandardSPMFErrmeasure, estimate_error)
+from .core.exceptions import (LostOrthogonalityException,
+                              NoConvergenceException)
+from .core.logger import (ErrorLogger, Logger, PrintLogger, push_info,
+                          push_iteration_info)
 from .core.nep import (NEP, compute_Mder, compute_Mlincomb, compute_MM,
                        compute_resnorm)
+from .models.dep import DEP
 from .models.gallery import nep_gallery
 from .models.pep import PEP
 from .models.spmf import AbstractSPMF, SPMF_NEP
 from .models.sumnep import GenericSumNEP, SPMFSumNEP, SumNEP
 from .ops import matfun
+from .ops.linsolve import (BackslashLinSolver, BackslashLinSolverCreator,
+                           DefaultLinSolverCreator, FactorizeLinSolver,
+                           FactorizeLinSolverCreator, GMRESLinSolver,
+                           GMRESLinSolverCreator, LinSolver,
+                           SparseFactorizeLinSolver,
+                           SparseFactorizeLinSolverCreator, create_linsolver,
+                           lin_solve)
+from .ops.orth import (DGKS, ClassicalGS, ModifiedGS,
+                       orthogonalize_and_normalize)
+from .solvers.iar import iar
+from .solvers.iar_real import dep_shift_block_lu, iar_real, iar_real_scan
+from .solvers.newton import (augnewton, implicitdet, newton, newtonqr,
+                             quasinewton, resinv)
 from .solvers.refine import newton_refine, resinv_refine
+from .solvers.rf import compute_rf
 from .solvers.spmf_real import iar_real_spmf, iar_real_spmf_multishift
+from .solvers.tiar import tiar
+from .solvers.tiar_real import tiar_real, tiar_real_scan, tiar_real_spmf
 
 __all__ = [
     "NEP",
@@ -29,12 +65,57 @@ __all__ = [
     "compute_resnorm",
     "nep_gallery",
     "PEP",
+    "DEP",
     "AbstractSPMF",
     "SPMF_NEP",
     "GenericSumNEP",
     "SPMFSumNEP",
     "SumNEP",
     "matfun",
+    "Errmeasure",
+    "ResidualErrmeasure",
+    "StandardSPMFErrmeasure",
+    "EigvalReferenceErrmeasure",
+    "DefaultErrmeasure",
+    "estimate_error",
+    "NoConvergenceException",
+    "LostOrthogonalityException",
+    "Logger",
+    "PrintLogger",
+    "ErrorLogger",
+    "push_info",
+    "push_iteration_info",
+    "LinSolver",
+    "lin_solve",
+    "FactorizeLinSolver",
+    "SparseFactorizeLinSolver",
+    "BackslashLinSolver",
+    "GMRESLinSolver",
+    "FactorizeLinSolverCreator",
+    "SparseFactorizeLinSolverCreator",
+    "BackslashLinSolverCreator",
+    "GMRESLinSolverCreator",
+    "DefaultLinSolverCreator",
+    "create_linsolver",
+    "DGKS",
+    "ClassicalGS",
+    "ModifiedGS",
+    "orthogonalize_and_normalize",
+    "iar",
+    "tiar",
+    "newton",
+    "augnewton",
+    "resinv",
+    "quasinewton",
+    "newtonqr",
+    "implicitdet",
+    "compute_rf",
+    "iar_real",
+    "iar_real_scan",
+    "dep_shift_block_lu",
+    "tiar_real",
+    "tiar_real_scan",
+    "tiar_real_spmf",
     "newton_refine",
     "resinv_refine",
     "iar_real_spmf",

@@ -28,33 +28,55 @@
 //
 // Layouts (all contiguous, row-major): data (m, ndiag, n), offsets (ndiag,)
 // int32 on the device, W (n, m), y (n,); the pair takes Wre, Wim (n, m) and
-// writes yre, yim (n,).  Accumulation is in the data type.
+// writes yre, yim (n,).  float and double accumulate in the data type.
+//
+// The bf16 entry points (dia_lincomb_bf16, dia_lincomb_pair_bf16) are the TPU
+// kernel's second dtype: __nv_bfloat16 bank and operands, float accumulator
+// and float result.  They halve the bank's bytes, the bound of this kernel.
+// One difference from the TPU body: pallas_spmv.py:118 multiplies in bf16
+// (each product rounded to bf16) and widens to f32 only for the sum; here
+// both factors are widened first, so each product is formed exactly in f32
+// (two 8-bit significands give at most 16 bits) and only the sum rounds.
 // The kernel allocates nothing and does not synchronise; it is launched on the
 // caller's stream, and the C entry points return cudaGetLastError().
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
 
+// The accumulator (and result) type of a data type, and the widening load.
+template <typename T> struct Acc { using type = T; };
+template <> struct Acc<__nv_bfloat16> { using type = float; };
+
+template <typename T>
+__device__ __forceinline__ typename Acc<T>::type widen(T x) { return x; }
+template <>
+__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
 template <typename T>
 __global__ void dia_lincomb_kernel(const T* __restrict__ data,
                                    const int* __restrict__ offsets,
                                    const T* __restrict__ W,
-                                   T* __restrict__ y,
+                                   typename Acc<T>::type* __restrict__ y,
                                    int64_t n, int m, int ndiag) {
+  using A = typename Acc<T>::type;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  T acc = T(0);
+  A acc = A(0);
   for (int d = 0; d < ndiag; ++d) {
     const int64_t c = r + static_cast<int64_t>(__ldg(offsets + d));
     if (c < 0 || c >= n) continue;  // never read outside [0, n)
     const T* wrow = W + c * m;
     const T* drow = data + static_cast<int64_t>(d) * n + r;
     for (int i = 0; i < m; ++i) {
-      acc += drow[static_cast<int64_t>(i) * ndiag * n] * wrow[i];
+      acc += widen(drow[static_cast<int64_t>(i) * ndiag * n]) *
+             widen(wrow[i]);
     }
   }
   y[r] = acc;
@@ -65,13 +87,14 @@ __global__ void dia_lincomb_pair_kernel(const T* __restrict__ data,
                                         const int* __restrict__ offsets,
                                         const T* __restrict__ Wre,
                                         const T* __restrict__ Wim,
-                                        T* __restrict__ yre,
-                                        T* __restrict__ yim,
+                                        typename Acc<T>::type* __restrict__ yre,
+                                        typename Acc<T>::type* __restrict__ yim,
                                         int64_t n, int m, int ndiag) {
+  using A = typename Acc<T>::type;
   const int64_t r = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (r >= n) return;
-  T acc_re = T(0);
-  T acc_im = T(0);
+  A acc_re = A(0);
+  A acc_im = A(0);
   for (int d = 0; d < ndiag; ++d) {
     const int64_t c = r + static_cast<int64_t>(__ldg(offsets + d));
     if (c < 0 || c >= n) continue;  // never read outside [0, n)
@@ -79,9 +102,10 @@ __global__ void dia_lincomb_pair_kernel(const T* __restrict__ data,
     const T* wim = Wim + c * m;
     const T* drow = data + static_cast<int64_t>(d) * n + r;
     for (int i = 0; i < m; ++i) {
-      const T a = drow[static_cast<int64_t>(i) * ndiag * n];  // read once
-      acc_re += a * wre[i];
-      acc_im += a * wim[i];
+      // read once for both operands
+      const A a = widen(drow[static_cast<int64_t>(i) * ndiag * n]);
+      acc_re += a * widen(wre[i]);
+      acc_im += a * widen(wim[i]);
     }
   }
   yre[r] = acc_re;
@@ -96,7 +120,7 @@ int launch(const void* data, const void* offsets, const void* W, void* y,
     dia_lincomb_kernel<T><<<static_cast<unsigned int>(blocks), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(data), static_cast<const int*>(offsets),
-        static_cast<const T*>(W), static_cast<T*>(y),
+        static_cast<const T*>(W), static_cast<typename Acc<T>::type*>(y),
         static_cast<int64_t>(n), m, ndiag);
   }
   return static_cast<int>(cudaGetLastError());
@@ -112,7 +136,8 @@ int launch_pair(const void* data, const void* offsets, const void* Wre,
                                  static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(data), static_cast<const int*>(offsets),
         static_cast<const T*>(Wre), static_cast<const T*>(Wim),
-        static_cast<T*>(yre), static_cast<T*>(yim),
+        static_cast<typename Acc<T>::type*>(yre),
+        static_cast<typename Acc<T>::type*>(yim),
         static_cast<int64_t>(n), m, ndiag);
   }
   return static_cast<int>(cudaGetLastError());
@@ -148,6 +173,20 @@ int dia_lincomb_pair_f64(const void* data, const void* offsets,
                          void* stream) {
   return launch_pair<double>(data, offsets, Wre, Wim, yre, yim, n, m, ndiag,
                              stream);
+}
+
+// bf16 bank and operands, float results (y, yre, yim point to float).
+int dia_lincomb_bf16(const void* data, const void* offsets, const void* W,
+                     void* y, long long n, int m, int ndiag, void* stream) {
+  return launch<__nv_bfloat16>(data, offsets, W, y, n, m, ndiag, stream);
+}
+
+int dia_lincomb_pair_bf16(const void* data, const void* offsets,
+                          const void* Wre, const void* Wim, void* yre,
+                          void* yim, long long n, int m, int ndiag,
+                          void* stream) {
+  return launch_pair<__nv_bfloat16>(data, offsets, Wre, Wim, yre, yim, n, m,
+                                    ndiag, stream);
 }
 
 // An empty launch on the caller's stream: the floor any call pays.

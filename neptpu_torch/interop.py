@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .config import resolve_device
+from .models.dep import DEP
 from .ops.dia import DiaTermBank
 from .ops.mixed import MixedTermBank
 from .ops.partitioned import (BatchedShiftSMW, BlockTridiagSolver,
@@ -23,8 +24,9 @@ from .ops.partitioned import (BatchedShiftSMW, BlockTridiagSolver,
 from .ops.sparse import DenseTermBank, SparseTermBank
 from .solvers.iar_real import DenseBlockLU
 
-__all__ = ["bank_from_arrays", "shift_solver_from_arrays",
-           "batched_shift_solver_from_arrays", "carry_from_arrays"]
+__all__ = ["bank_from_arrays", "dep_from_arrays", "block_lu_from_arrays",
+           "shift_solver_from_arrays", "batched_shift_solver_from_arrays",
+           "carry_from_arrays"]
 
 
 def _t(x, device, dtype=None):
@@ -67,6 +69,22 @@ def bank_from_arrays(spec, device=None):
                              main_idx, tidx_r, tidx_i, shape, nterms,
                              fro_norms=_t(fro, "cpu"))
     raise ValueError(f"unknown bank kind {kind!r}")
+
+
+def dep_from_arrays(bank_spec, tauv, device=None):
+    """A :class:`DEP` over the bank of a JAX ``DEP`` (``bank_spec``: the spec
+    of its ``bank`` — for a banded problem the ``DiaTermBank``'s ``data``,
+    ``fro_norms``, ``offsets`` and ``shape``) and its delays ``tauv``."""
+    return DEP(None, tauv=np.asarray(tauv),
+               bank=bank_from_arrays(bank_spec, device))
+
+
+def block_lu_from_arrays(lu, piv, device=None):
+    """A :class:`DenseBlockLU` from the ``(lu, piv)`` pair of the JAX
+    package's ``dep_shift_block_lu``/``spmf_shift_block_lu`` (0-based
+    pivots)."""
+    device = resolve_device(device)
+    return DenseBlockLU(_t(lu, device), _pivots(piv, device))
 
 
 def shift_solver_from_arrays(spec, device=None):
@@ -150,9 +168,9 @@ def batched_shift_solver_from_arrays(state, device=None):
     return obj
 
 
-def carry_from_arrays(Vre, Vim, Hre, Him, device=None):
-    """An IAR scan carry ``(Vre, Vim, Hre, Him)`` from numpy arrays (fresh
-    tensors: the port's scan updates its carry in place)."""
+def carry_from_arrays(*arrays, device=None):
+    """A scan carry from numpy arrays — the IAR carry ``(Vre, Vim, Hre,
+    Him)`` or the TIAR carry ``(Zre, Zim, are, aim, Hre, Him)`` — as fresh
+    tensors (the port's scans update their carry in place)."""
     device = resolve_device(device)
-    return tuple(torch.tensor(np.asarray(x), device=device)
-                 for x in (Vre, Vim, Hre, Him))
+    return tuple(torch.tensor(np.asarray(x), device=device) for x in arrays)

@@ -1,12 +1,23 @@
 """Gallery registry: ``nep_gallery(name, *params, device=..., **kwargs)``."""
 from __future__ import annotations
 
+from . import basic, examples
 from .nlevp import gun_like
 from .waveguide import wep_gallery
 
 __all__ = ["nep_gallery", "GALLERY"]
 
 GALLERY = {
+    "dep0": basic.dep0,
+    "dep0_sparse": basic.dep0_sparse,
+    "dep0_tridiag": basic.dep0_tridiag,
+    "pep0": basic.pep0,
+    "pep0_sym": basic.pep0_sym,
+    "pep0_sparse": basic.pep0_sparse,
+    "qep_fixed_eig": basic.qep_fixed_eig,
+    "dep1": examples.dep1,
+    "dep_symm_double": examples.dep_symm_double,
+    "dep_double": examples.dep_double,
     "gun_like": gun_like,
     "waveguide": wep_gallery,
 }

@@ -106,6 +106,12 @@ class DiaTermBank:
                 shape=(n, n)))
         return out
 
+    def astype(self, dtype):
+        """The same bank with its values in ``dtype`` (a torch dtype;
+        ``torch.bfloat16`` for the half-width bank of the bf16 kernel)."""
+        return DiaTermBank(self.data.to(dtype), self.offsets, self.shape,
+                           host_data=self._host_data)
+
     def _kernel_data(self, dt):
         """The bank's values for a kernel launch in ``dt``: the stored tensor
         itself when the dtype matches (the scan's case — no copy per call),
@@ -120,7 +126,13 @@ class DiaTermBank:
         A CPU tensor takes the plain twin; any other device launches the CUDA
         kernel (which raises on what it does not take).  The bank's data is
         real, so a complex ``W`` is the pair apply of its re and im parts
-        (one kernel launch on the card)."""
+        (one kernel launch on the card).
+
+        A bfloat16 bank applied to a bfloat16 operand gives a float32 result
+        from float32 products and sums, on the card and on the CPU alike: the
+        port follows the TPU kernel (``neptpu/ops/pallas_spmv.py``), not the
+        JAX package's non-Pallas path, which sums in bfloat16 and returns
+        bfloat16."""
         dt = torch.promote_types(W.dtype, self.data.dtype)
         if dt.is_complex:
             Wc = W.to(dt)
@@ -135,7 +147,8 @@ class DiaTermBank:
         """``(sum_i A_i @ Wre[:, i], sum_i A_i @ Wim[:, i])`` for a real
         operand pair — the re/im channels of the complex-as-real scan.  On the
         card this is ONE kernel launch that reads the bank once; on the CPU
-        the plain twin."""
+        the plain twin.  bfloat16 bank and operands: float32 results, as in
+        :meth:`lincomb_apply`."""
         dt = torch.promote_types(torch.promote_types(Wre.dtype, Wim.dtype),
                                  self.data.dtype)
         if dt.is_complex:
@@ -147,6 +160,9 @@ class DiaTermBank:
         return dia_lincomb_pair(self._kernel_data(dt), self.offsets_dev,
                                 Wre.to(dt).contiguous(),
                                 Wim.to(dt).contiguous())
+
+    # the name the complex-as-real scans look for: one launch per step
+    lincomb_apply_split = lincomb_apply_pair
 
     def combine(self, w):
         """``sum_i w_i A_i`` as a new single-term bank."""

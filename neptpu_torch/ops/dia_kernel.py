@@ -5,8 +5,10 @@
 (W read as zero outside ``[0, n)``).  ``dia_lincomb`` launches the sm_90a
 kernel in ``neptpu_torch/csrc/dia_spmv.cu`` (the port of the TPU kernel
 ``neptpu/ops/pallas_spmv.py``); ``dia_lincomb_pair`` applies one bank to a
-re/im operand pair in a single launch that reads the bank once.
-``dia_lincomb_plain`` and ``dia_lincomb_pair_plain`` are their plain PyTorch
+re/im operand pair in a single launch that reads the bank once.  Both take
+float32 or float64 (result in the data type) and bfloat16 (bank and operands
+bfloat16, every product and the whole sum in float32, float32 result — the
+TPU kernel's second dtype).  ``dia_lincomb_plain`` and ``dia_lincomb_pair_plain`` are their plain PyTorch
 twins, the CPU path and the kernels' test oracle.  The kernel is compiled by
 ``nvcc`` on first use into ``neptpu_torch/_build/`` (file name keyed by the
 source's content hash) and bound through ``ctypes`` with a plain C interface.
@@ -26,6 +28,7 @@ import torch
 
 __all__ = [
     "DIA_SPMV",
+    "result_dtype",
     "dia_lincomb",
     "dia_lincomb_pair",
     "dia_lincomb_plain",
@@ -54,17 +57,31 @@ def _find_nvcc():
     return found
 
 
+# data dtype -> suffix of the C entry points
+_SUFFIX = {torch.float32: "f32", torch.float64: "f64",
+           torch.bfloat16: "bf16"}
+
+
+def result_dtype(dtype):
+    """The accumulator and result dtype of a bank dtype: float32 for
+    bfloat16, else the dtype itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 class KernelLibrary:
     """One CUDA source built into a shared library on first use.
 
     ``counts`` holds, per wrapper, the kernel launches made through it (and
-    only there); ``launches`` is their sum.  ``build_seconds`` and
-    ``build_log`` record the last build."""
+    only there); ``launches`` is their sum.  ``entry_counts`` splits the same
+    launches by C entry point (``dia_lincomb_pair_f32``, ...), one per data
+    type.  ``build_seconds`` and ``build_log`` record the last build."""
 
     def __init__(self, name, source):
         self.name = name
         self.source = source
         self.counts = {"dia_lincomb": 0, "dia_lincomb_pair": 0}
+        self.entry_counts = {f"{entry}_{sfx}": 0 for entry in self.counts
+                             for sfx in _SUFFIX.values()}
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
@@ -76,8 +93,14 @@ class KernelLibrary:
         return sum(self.counts.values())
 
     def reset_counts(self):
-        for key in self.counts:
-            self.counts[key] = 0
+        for counts in (self.counts, self.entry_counts):
+            for key in counts:
+                counts[key] = 0
+
+    def count(self, entry, dtype):
+        """One launch through wrapper ``entry`` with ``dtype`` data."""
+        self.counts[entry] += 1
+        self.entry_counts[f"{entry}_{_SUFFIX[dtype]}"] += 1
 
     def library_path(self):
         with open(self.source, "rb") as fh:
@@ -94,10 +117,11 @@ class KernelLibrary:
                 self._build(path)
             lib = ctypes.CDLL(path)
             ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            for fn in (lib.dia_lincomb_f32, lib.dia_lincomb_f64):
+            for sfx in _SUFFIX.values():
+                fn = getattr(lib, f"dia_lincomb_{sfx}")
                 fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
                 fn.restype = i32
-            for fn in (lib.dia_lincomb_pair_f32, lib.dia_lincomb_pair_f64):
+                fn = getattr(lib, f"dia_lincomb_pair_{sfx}")
                 fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
                                ptr]
                 fn.restype = i32
@@ -109,12 +133,11 @@ class KernelLibrary:
             return lib
 
     def function(self, entry, dtype):
-        """The bound C entry point ``<entry>_f32``/``_f64``, looked up once
-        per dtype."""
+        """The bound C entry point ``<entry>_f32``/``_f64``/``_bf16``, looked
+        up once per dtype."""
         fn = self._fns.get((entry, dtype))
         if fn is None:
-            suffix = "f32" if dtype == torch.float32 else "f64"
-            fn = getattr(self.load(), f"{entry}_{suffix}")
+            fn = getattr(self.load(), f"{entry}_{_SUFFIX[dtype]}")
             self._fns[(entry, dtype)] = fn
         return fn
 
@@ -150,9 +173,6 @@ def build_kernel():
     return DIA_SPMV.load()
 
 
-_KERNEL_DTYPES = (torch.float32, torch.float64)
-
-
 def _check_operands(what, data, offsets_dev, operands):
     """Raise on anything the kernels do not take; returns ``(m, ndiag, n)``.
     ``operands``: ``(name, tensor)`` pairs, each an ``(n, m)`` operand."""
@@ -166,9 +186,10 @@ def _check_operands(what, data, offsets_dev, operands):
                              "different devices")
         if not t.is_contiguous():
             raise ValueError(f"{what} kernel needs contiguous {name}")
-    if dt not in _KERNEL_DTYPES or offsets_dev.dtype != torch.int32:
-        raise TypeError(f"{what} kernel takes float32 or float64 data with "
-                        f"int32 offsets, got {dt} and {offsets_dev.dtype}")
+    if dt not in _SUFFIX or offsets_dev.dtype != torch.int32:
+        raise TypeError(f"{what} kernel takes float32, float64 or bfloat16 "
+                        f"data with int32 offsets, got {dt} and "
+                        f"{offsets_dev.dtype}")
     if data.ndim != 3 or offsets_dev.ndim != 1:
         raise ValueError(f"{what}: data (m, ndiag, n), offsets (ndiag,)")
     m, ndiag, n = data.shape
@@ -196,18 +217,20 @@ def _on_stream(device, call):
 
 def dia_lincomb(data, offsets_dev, W):
     """Launch the CUDA kernel: ``data (m, ndiag, n)``, ``offsets_dev (ndiag,)``
-    int32, ``W (n, m)``, all contiguous on one CUDA device, float32 or float64
-    (one dtype).  Returns ``y (n,)``.  Raises on anything the kernel does not
-    take — there is no fallback to the plain twin."""
+    int32, ``W (n, m)``, all contiguous on one CUDA device, float32, float64
+    or bfloat16 (data and operand of one dtype).  Returns ``y (n,)`` in the
+    data dtype, float32 for bfloat16 (products and sum in float32).  Raises
+    on anything the kernel does not take — there is no fallback to the plain
+    twin."""
     m, ndiag, n = _check_operands("dia_lincomb", data, offsets_dev,
                                   (("W", W),))
     fn = DIA_SPMV.function("dia_lincomb", data.dtype)
-    y = torch.empty(n, dtype=data.dtype, device=data.device)
+    y = torch.empty(n, dtype=result_dtype(data.dtype), device=data.device)
     rc = _on_stream(data.device, lambda stream: fn(
         data.data_ptr(), offsets_dev.data_ptr(), W.data_ptr(), y.data_ptr(),
         n, m, ndiag, stream))
     DIA_SPMV.check(rc, "dia_lincomb")
-    DIA_SPMV.counts["dia_lincomb"] += 1
+    DIA_SPMV.count("dia_lincomb", data.dtype)
     return y
 
 
@@ -219,14 +242,15 @@ def dia_lincomb_pair(data, offsets_dev, Wre, Wim):
     m, ndiag, n = _check_operands("dia_lincomb_pair", data, offsets_dev,
                                   (("Wre", Wre), ("Wim", Wim)))
     fn = DIA_SPMV.function("dia_lincomb_pair", data.dtype)
-    y = torch.empty((2, n), dtype=data.dtype, device=data.device)
+    y = torch.empty((2, n), dtype=result_dtype(data.dtype),
+                    device=data.device)
     yre_ptr = y.data_ptr()
     rc = _on_stream(data.device, lambda stream: fn(
         data.data_ptr(), offsets_dev.data_ptr(), Wre.data_ptr(),
         Wim.data_ptr(), yre_ptr, yre_ptr + n * y.element_size(), n, m, ndiag,
         stream))
     DIA_SPMV.check(rc, "dia_lincomb_pair")
-    DIA_SPMV.counts["dia_lincomb_pair"] += 1
+    DIA_SPMV.count("dia_lincomb_pair", data.dtype)
     return y[0], y[1]
 
 
@@ -255,7 +279,11 @@ def dia_lincomb_plain(data, offsets, W):
 
     Mirrors both branches of ``neptpu.ops.dia.DiaTermBank.lincomb_apply``:
     unrolled shifted FMAs for stencil-like banks (<= 16 offsets), one padded
-    gather + einsum for wide banks."""
+    gather + einsum for wide banks.  bfloat16 inputs are widened to float32
+    first, as the kernel widens them: float32 products and sums, float32
+    result."""
+    if data.dtype == torch.bfloat16:
+        data, W = data.to(torch.float32), W.to(torch.float32)
     n = data.shape[2]
     if len(offsets) <= 16:
         y = torch.zeros(n, dtype=W.dtype, device=W.device)

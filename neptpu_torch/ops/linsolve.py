@@ -1,0 +1,294 @@
+"""Linear-solver layer: solvers bound to one ``(nep, lam)`` and the creator
+objects that decide when factorizations happen.
+
+* moderate n (the gallery: n <= ~1e4): a dense LU of ``compute_Mder(nep,
+  lam)`` in device memory, factored once and reused over the solver's
+  iterations; ``batched_lu_factor``/``batched_lu_solve`` do the same over a
+  leading shift axis (one stacked LU per node set).
+* matrix-free: GMRES over ``compute_Mlincomb`` matvecs.
+* ``SparseFactorizeLinSolver``: scipy ``splu`` of the sparse M(lam) on the
+  host, for float64 reference runs.
+
+Creators keep the recycling-dict semantics: a factorization is cached keyed
+by its shift, up to ``max_factorizations``.  A solver lives on the device of
+the problem it was created for.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from ..core.nep import compute_Mder, compute_Mlincomb
+
+__all__ = [
+    "LinSolver",
+    "lin_solve",
+    "FactorizeLinSolver",
+    "SparseFactorizeLinSolver",
+    "SparseFactorizeLinSolverCreator",
+    "BackslashLinSolver",
+    "GMRESLinSolver",
+    "FactorizeLinSolverCreator",
+    "BackslashLinSolverCreator",
+    "GMRESLinSolverCreator",
+    "DefaultLinSolverCreator",
+    "create_linsolver",
+    "gmres",
+    "batched_lu_factor",
+    "batched_lu_solve",
+]
+
+
+def _dense_mder(nep, lam):
+    M = compute_Mder(nep, lam)
+    return M if isinstance(M, torch.Tensor) else M.to_dense()
+
+
+def _lu_solve(lu, piv, b):
+    """``lu_solve`` for a vector or matrix right-hand side."""
+    if b.ndim == 1:
+        return torch.linalg.lu_solve(lu, piv, b[:, None])[:, 0]
+    return torch.linalg.lu_solve(lu, piv, b)
+
+
+def batched_lu_factor(A):
+    """LU of a stack ``A (s, n, n)``: returns ``(lu, piv)`` with the leading
+    shift axis kept."""
+    return torch.linalg.lu_factor(A)
+
+
+def batched_lu_solve(lu_piv, b):
+    """Solve with a stacked LU: ``b (s, n)`` or ``(s, n, k)``."""
+    lu, piv = lu_piv
+    if b.ndim == lu.ndim - 1:
+        return torch.linalg.lu_solve(lu, piv, b[..., None])[..., 0]
+    return torch.linalg.lu_solve(lu, piv, b)
+
+
+class LinSolver:
+    """A solver bound to one (nep, lam); ``solve`` accepts vector or matrix
+    right-hand sides (contour methods need block right-hand sides)."""
+
+    def solve(self, b, tol=None):
+        raise NotImplementedError
+
+
+def lin_solve(solver: LinSolver, b, tol=None):
+    return solver.solve(b, tol=tol)
+
+
+class FactorizeLinSolver(LinSolver):
+    """LU once, triangular solves per call."""
+
+    def __init__(self, nep, lam, umfpack_refinements: int = 2):
+        A = _dense_mder(nep, lam)
+        self.dtype = A.dtype
+        self.device = A.device
+        self.lu, self.piv = torch.linalg.lu_factor(A)
+
+    def solve(self, b, tol=None):
+        b = torch.as_tensor(b, device=self.device)
+        if b.dtype.is_complex and not self.dtype.is_complex:
+            # real factorization, complex right-hand side: solve the parts
+            # (exact; avoids a lossy complex -> real cast)
+            return torch.complex(
+                _lu_solve(self.lu, self.piv, b.real.to(self.dtype)),
+                _lu_solve(self.lu, self.piv, b.imag.to(self.dtype)))
+        return _lu_solve(self.lu, self.piv, b.to(self.dtype))
+
+
+class SparseFactorizeLinSolver(LinSolver):
+    """scipy ``splu`` of the sparse M(lam) on the host, in complex128, for
+    float64 reference runs.  ``solve`` takes and returns numpy arrays or
+    tensors (a tensor comes back on its own device)."""
+
+    def __init__(self, nep, lam):
+        import scipy.sparse.linalg as spla
+
+        from ..solvers.spmf_real import collect_spmf_terms, spmf_fun_scalars
+
+        mats, fv = collect_spmf_terms(nep)
+        w = spmf_fun_scalars(fv, complex(lam))
+        M = None
+        for wi, A in zip(w, mats):
+            T = A.astype(complex) * wi
+            M = T if M is None else M + T
+        self.lu = spla.splu(M.tocsc())
+
+    def solve(self, b, tol=None):
+        if isinstance(b, torch.Tensor):
+            x = self.lu.solve(b.detach().cpu().numpy().astype(complex))
+            return torch.as_tensor(x, device=b.device)
+        return self.lu.solve(np.asarray(b, dtype=complex))
+
+
+class BackslashLinSolver(LinSolver):
+    """Re-solve ``A \\ b`` each call, no cached factorization."""
+
+    def __init__(self, nep, lam):
+        self.A = _dense_mder(nep, lam)
+
+    def solve(self, b, tol=None):
+        b = torch.as_tensor(b, device=self.A.device)
+        dt = torch.promote_types(self.A.dtype, b.dtype)
+        return torch.linalg.solve(self.A.to(dt), b.to(dt))
+
+
+def gmres(matvec, b, x0=None, tol=1e-12, restart=50, maxiter=200, M=None):
+    """Matrix-free restarted GMRES on the device of ``b``: modified
+    Gram-Schmidt Arnoldi, the small least-squares problem solved per inner
+    step.  Stops at ``||b - A x|| <= tol ||b||`` or after ``maxiter``
+    restarts; ``M``: optional right-hand-side preconditioner ``v -> M v``
+    (left preconditioning)."""
+    pre = (lambda v: v) if M is None else M
+    x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
+    bnorm = float(torch.linalg.vector_norm(pre(b)))
+    if bnorm == 0.0:
+        return x
+    n = b.shape[0]
+    restart = min(int(restart), n)
+    for _ in range(int(maxiter)):
+        r = pre(b - matvec(x))
+        beta = float(torch.linalg.vector_norm(r))
+        if beta <= tol * bnorm:
+            break
+        Q = torch.zeros((n, restart + 1), dtype=b.dtype, device=b.device)
+        H = torch.zeros((restart + 1, restart), dtype=b.dtype)
+        Q[:, 0] = r / beta
+        e1 = torch.zeros(restart + 1, dtype=b.dtype)
+        e1[0] = beta
+        y, k = None, 0
+        for k in range(1, restart + 1):
+            w = pre(matvec(Q[:, k - 1]))
+            for j in range(k):
+                hj = torch.vdot(Q[:, j], w)
+                w = w - hj * Q[:, j]
+                H[j, k - 1] = hj
+            hk = float(torch.linalg.vector_norm(w))
+            H[k, k - 1] = hk
+            y = torch.linalg.lstsq(H[:k + 1, :k], e1[:k + 1, None]).solution
+            res = float(torch.linalg.vector_norm(
+                H[:k + 1, :k] @ y - e1[:k + 1, None]))
+            if hk == 0.0 or res <= tol * bnorm:
+                break
+            Q[:, k] = w / hk
+        x = x + Q[:, :k] @ y[:, 0].to(b.device)
+    return x
+
+
+class GMRESLinSolver(LinSolver):
+    """Matrix-free: wraps ``v -> compute_Mlincomb(nep, lam, v)``."""
+
+    def __init__(self, nep, lam, tol=1e-12, restart=50, maxiter=200,
+                 preconditioner: Optional[Callable] = None):
+        self.nep = nep
+        self.lam = lam
+        self.tol = tol
+        self.restart = restart
+        self.maxiter = maxiter
+        self.preconditioner = preconditioner
+        is_complex = (lam.is_complex() if isinstance(lam, torch.Tensor)
+                      else np.iscomplexobj(lam))
+        self.dtype = torch.complex128 if is_complex else torch.float64
+
+    def _matvec(self, v):
+        return compute_Mlincomb(self.nep, self.lam, v[:, None], np.ones(1))
+
+    def solve(self, b, tol=None):
+        b = torch.as_tensor(b)
+        if b.ndim == 2:
+            cols = [self.solve(b[:, j], tol=tol) for j in range(b.shape[1])]
+            return torch.stack(cols, dim=1)
+        t = self.tol if tol is None else tol
+        # promote rather than truncate: a complex right-hand side on a
+        # real-dtype solver must not be cast to real
+        dt = torch.promote_types(self.dtype, b.dtype)
+        return gmres(self._matvec, b.to(dt), tol=t, restart=self.restart,
+                     maxiter=self.maxiter, M=self.preconditioner)
+
+
+# ---------------------------------------------------------------------------
+# Creators: strategy objects deciding when factorizations happen.
+# ---------------------------------------------------------------------------
+
+
+class LinSolverCreator:
+    def create(self, nep, lam):
+        raise NotImplementedError
+
+
+class _RecyclingCreator(LinSolverCreator):
+    """Cache up to ``max_factorizations`` solvers keyed by shift (negative:
+    no limit; 0: cache nothing beyond what was precomputed)."""
+
+    def __init__(self, max_factorizations: int = 0, cache=None):
+        self.max_factorizations = max_factorizations
+        self.cache = dict(cache or {})
+
+    def _make(self, nep, lam):
+        raise NotImplementedError
+
+    def create(self, nep, lam):
+        key = complex(lam)
+        if key in self.cache:
+            return self.cache[key]
+        solver = self._make(nep, lam)
+        if self.max_factorizations != 0 and (
+                self.max_factorizations < 0
+                or len(self.cache) < self.max_factorizations):
+            self.cache[key] = solver
+        return solver
+
+
+class FactorizeLinSolverCreator(_RecyclingCreator):
+    """Optionally precompute factorizations at given shifts and recycle up to
+    ``max_factorizations``."""
+
+    def __init__(self, umfpack_refinements: int = 2,
+                 recycled_factorizations=None, max_factorizations: int = 0,
+                 nep=None, precomp_values=()):
+        super().__init__(max_factorizations, recycled_factorizations)
+        self.umfpack_refinements = umfpack_refinements
+        for lam in precomp_values:
+            if nep is None:
+                raise ValueError("precomp_values requires nep")
+            self.cache[complex(lam)] = self._make(nep, lam)
+
+    def _make(self, nep, lam):
+        return FactorizeLinSolver(nep, lam, self.umfpack_refinements)
+
+
+class SparseFactorizeLinSolverCreator(_RecyclingCreator):
+    """Creator for :class:`SparseFactorizeLinSolver` with the same recycling
+    dict semantics as :class:`FactorizeLinSolverCreator`."""
+
+    def _make(self, nep, lam):
+        return SparseFactorizeLinSolver(nep, lam)
+
+
+class BackslashLinSolverCreator(LinSolverCreator):
+    def create(self, nep, lam):
+        return BackslashLinSolver(nep, lam)
+
+
+class GMRESLinSolverCreator(LinSolverCreator):
+    def __init__(self, **kwargs):
+        self.kwargs = kwargs
+
+    def create(self, nep, lam):
+        return GMRESLinSolver(nep, lam, **self.kwargs)
+
+
+DefaultLinSolverCreator = FactorizeLinSolverCreator
+
+
+def create_linsolver(creator, nep, lam):
+    """A solver for ``(nep, lam)`` from a creator object, a creator class
+    (instantiated with its defaults) or ``None`` (the default creator)."""
+    if creator is None:
+        creator = FactorizeLinSolverCreator()
+    if isinstance(creator, type):
+        creator = creator()
+    return creator.create(nep, lam)

@@ -20,6 +20,7 @@ __all__ = [
     "DerivFun",
     "with_derivs",
     "eye_like",
+    "expm",
     "sqrtm",
     "ramp",
     "jordan_matrix",
@@ -60,6 +61,13 @@ def eye_like(S):
     if S.ndim == 0:
         return torch.ones((), dtype=S.dtype, device=S.device)
     return torch.eye(S.shape[-1], dtype=S.dtype, device=S.device)
+
+
+def expm(S):
+    """Matrix exponential (scalar-safe)."""
+    if S.ndim == 0:
+        return torch.exp(S)
+    return torch.linalg.matrix_exp(S)
 
 
 def sqrtm(S, iters: int = 40):

@@ -16,18 +16,96 @@ eager Python loop that writes IN PLACE into the preallocated
 ``(m+1, m+1, n)`` basis tensors and the ``(m+1, m)`` Hessenberg pair (the JAX
 ``.at[].set`` updates).  Ritz extraction runs on the host every
 ``check_error_every`` steps.
+
+Front ends: :func:`iar_real` for a delay eigenproblem (``DEP``: the table
+``C[i, j] = gamma^j (-tau_i)^j e^{-tau_i sigma}``, the dense real 2n x 2n
+block LU of M(sigma), the ``-lam I`` term carried as the scan's identity
+term), and ``neptpu_torch.solvers.spmf_real.iar_real_spmf`` for SPMFs.
 """
 from __future__ import annotations
 
 import time
+import warnings
 
 import numpy as np
 import torch
 
 from ..config import finfo_max, to_torch_dtype
+from ..core.nep import compute_resnorm
+from .common import solver_device
 
-__all__ = ["DenseBlockLU", "as_pair_solver", "run_iar_real", "auto_theta",
-           "apply_theta"]
+__all__ = ["iar_real", "iar_real_scan", "run_iar_real", "dep_shift_block_lu",
+           "dep_coeff_table", "block_assemble_lu", "DenseBlockLU",
+           "as_pair_solver", "auto_theta", "apply_theta"]
+
+
+def _dep_host_resnorm(nep):
+    """Host-side (numpy/scipy) DEP residual ``||M(lam) q||`` in complex128
+    against scipy mirrors of the bank terms."""
+    tau = np.asarray(nep.tauv, dtype=float)
+    terms = [A.astype(np.float64) for A in nep.bank.host_csr_terms()]
+
+    def resnorm(lam, q):
+        y = -lam * q
+        for t, A in zip(tau, terms):
+            y = y + np.exp(-t * lam) * (A @ q)
+        return float(np.linalg.norm(y))
+
+    return resnorm
+
+
+def dep_coeff_table(nep, sigma, gamma, m, scaled=False):
+    """C[i, j] = gamma^j (-tau_i)^j e^{-tau_i sigma} (j = 0..m, column 0
+    zeroed: the IAR linear combination starts at the first derivative).
+    ``scaled`` divides column j by j! (the Taylor-normalized table), built by
+    a progressive row recurrence so no intermediate over/underflows.
+    Returns (Cre, Cim) numpy float64."""
+    tau = np.asarray(nep.tauv, dtype=float)
+    C = np.zeros((len(tau), m + 1), dtype=complex)
+    C[:, 0] = np.exp(-tau * complex(sigma))
+    r = -complex(gamma) * tau  # per-row column ratio
+    for j in range(1, m + 1):
+        C[:, j] = C[:, j - 1] * (r / j if scaled else r)
+    C[:, 0] = 0.0
+    return np.ascontiguousarray(C.real), np.ascontiguousarray(C.imag)
+
+
+def block_assemble_lu(M0, dtype, device):
+    """LU of the real 2n x 2n block form ``[[Re M, -Im M], [Im M, Re M]]`` of
+    a complex scipy sparse matrix ``M0``: the blocks are scattered and
+    factored (``torch.linalg.lu_factor``) on ``device``.  Applied to
+    ``[re; im]`` the block matrix gives the re/im parts of ``M (re + i im)``.
+    Returns ``(lu, piv)``."""
+    M0 = M0.tocoo()
+    n = M0.shape[0]
+    dt = to_torch_dtype(dtype)
+    rows = torch.as_tensor(M0.row.astype(np.int64), device=device)
+    cols = torch.as_tensor(M0.col.astype(np.int64), device=device)
+    re = torch.as_tensor(M0.data.real, dtype=dt, device=device)
+    im = torch.as_tensor(M0.data.imag, dtype=dt, device=device)
+    blk = torch.zeros((2 * n, 2 * n), dtype=dt, device=device)
+    blk.index_put_((rows, cols), re, accumulate=True)
+    blk.index_put_((rows, cols + n), -im, accumulate=True)
+    blk.index_put_((rows + n, cols), im, accumulate=True)
+    blk.index_put_((rows + n, cols + n), re, accumulate=True)
+    return torch.linalg.lu_factor(blk)
+
+
+def dep_shift_block_lu(nep, sigma, dtype=torch.float32, device=None):
+    """Real 2n x 2n block LU of a DEP's M(sigma): assembled on the host in
+    complex128 from the bank's scipy mirrors, factored on ``device``
+    (default: the card)."""
+    import scipy.sparse as sp
+
+    device = solver_device(nep, device)
+    sigma = complex(sigma)
+    n = nep.n
+    M0 = sp.coo_matrix((np.full(n, -sigma), (np.arange(n), np.arange(n))),
+                       shape=(n, n)).tocsr()
+    for t, A in zip(np.asarray(nep.tauv, dtype=float),
+                    nep.bank.host_csr_terms()):
+        M0 = M0 + np.exp(-t * sigma) * A
+    return block_assemble_lu(M0, dtype, device)
 
 
 class DenseBlockLU:
@@ -143,6 +221,25 @@ def _scan_chunk(bank, m, nsteps, k0, carry, Cre, Cim, gre, gim, solver,
         _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled,
               inv_theta)
     return carry
+
+
+def iar_real_scan(bank, m, Cre, Cim, gre, gim, v0re, v0im, lu, piv=None,
+                  scaled=False, inv_theta=1.0):
+    """Run m complex-as-real IAR steps from the start vector pair
+    ``(v0re, v0im)`` (tensors on the bank's device).
+
+    ``lu``: a ``solve_pair`` solver, or with ``piv`` the dense block LU.
+    Returns ``(Vre, Vim, Hre, Him)``: the padded basis pair
+    ``(m+1, m+1, n)`` and the ``(m+1, m)`` Hessenberg pair."""
+    dt = torch.promote_types(v0re.dtype, torch.as_tensor(Cre).dtype)
+    solver = lu if piv is None else DenseBlockLU(lu, piv)
+    carry = _init_carry(m, v0re.to(dt), v0im.to(dt), dt)
+    dev = v0re.device
+    return _scan_chunk(bank, m, m, 1, carry,
+                       torch.as_tensor(Cre, dtype=dt, device=dev),
+                       torch.as_tensor(Cim, dtype=dt, device=dev),
+                       float(gre), float(gim), solver, scaled=scaled,
+                       inv_theta=float(inv_theta))
 
 
 def _extract_ritz(carry, k_done, m, n, sigma, gamma):
@@ -285,3 +382,77 @@ def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
     info = {"t_scan": t_scan, "t_check": t_check, "nconv": nconv,
             "k_done": k_done, "errs": errs[idx]}
     return lams[take], Q[:, take], info
+
+
+def iar_real(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None, v=None,
+             dtype=torch.float32, lu_piv=None, check_error_every=None,
+             errmeasure=None, return_info=False, scaled="auto", device=None):
+    """Complex-as-real IAR on a DEP: returns the converged ``(lams, Q)``,
+    sorted by residual.
+
+    ``lu_piv``: optionally a prefactored result of
+    :func:`dep_shift_block_lu` (the factorization-reuse path).
+    ``check_error_every``: stop as soon as ``neigs`` Ritz pairs pass ``tol``,
+    checking every that many scan steps (host peek of the small Hessenberg
+    and first-block rows); default runs all ``maxit`` steps.
+    ``errmeasure``: optional ``(lam, q) -> float`` (``q`` a numpy vector)
+    replacing the residual norm in convergence counting; the default is
+    ``compute_resnorm`` through the problem's own Mlincomb, on the device.
+    ``scaled="auto"`` moves to the theta-scaled Taylor space when the classic
+    table would overflow ``dtype`` before ``maxit``.  ``device=None`` is the
+    card; the problem must live there."""
+    from .spmf_real import finite_table_prefix
+
+    device = solver_device(nep, device)
+    n = nep.n
+    m = int(maxit)
+    dt = to_torch_dtype(dtype)
+    if tol is None:
+        tol = 1e4 * float(torch.finfo(dt).eps)
+
+    t0 = time.perf_counter()
+    if lu_piv is None:
+        lu_piv = dep_shift_block_lu(nep, sigma, dtype=dt, device=device)
+        if device.type == "cuda":  # time the factorization, not its enqueue
+            torch.cuda.synchronize(device)
+    t_fact = time.perf_counter() - t0
+
+    if scaled == "auto":
+        Cre, Cim = dep_coeff_table(nep, sigma, gamma, m, scaled=False)
+        scaled = finite_table_prefix(Cre, Cim, dt) < m
+    else:
+        scaled = bool(scaled)
+    Cre, Cim = dep_coeff_table(nep, sigma, gamma, m, scaled=scaled)
+    theta = 1.0
+    if scaled:
+        theta = auto_theta(Cre, Cim, m, dt)
+        Cre, Cim = apply_theta(Cre, Cim, theta)
+
+    m_fin = finite_table_prefix(Cre, Cim, dt)
+    if m_fin < m:
+        warnings.warn(
+            f"DEP coefficient table overflows {dt} past derivative order "
+            f"{m_fin}; truncating maxit {m} -> {m_fin}")
+        m = m_fin
+        Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
+    if v is None:
+        v = np.ones(n)
+
+    if errmeasure is not None:
+        rn = errmeasure
+    else:
+        def rn(lam, q):
+            return float(compute_resnorm(
+                nep, complex(lam), torch.as_tensor(q, device=device)))
+
+    lams, Q, info = run_iar_real(
+        nep.bank, m, Cre, Cim, gamma * theta, v, lu_piv, dt,
+        sigma=sigma, gamma=gamma, neigs=neigs, tol=tol, resnorm=rn, n=n,
+        check_error_every=check_error_every, scaled=scaled, theta=theta,
+        device=device)
+    info["t_factorize"] = t_fact
+    info["scaled"] = scaled
+    info["theta"] = theta
+    if return_info:
+        return lams, Q, info
+    return lams, Q

@@ -22,7 +22,8 @@ import torch
 
 from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
 from ..ops.mixed import make_mixed_bank
-from .iar_real import apply_theta, auto_theta, run_iar_real
+from .iar_real import (apply_theta, auto_theta, block_assemble_lu,
+                       run_iar_real)
 
 __all__ = [
     "collect_spmf_terms",
@@ -43,6 +44,10 @@ def collect_spmf_terms(nep):
     fv = list(nep.get_fv())
     mats = []
     for sub in _spmf_parts(nep):
+        if hasattr(sub, "tauv"):  # DEP: virtual identity term (-lam I) first
+            import scipy.sparse as sp
+
+            mats.append(sp.eye(sub.n, format="csr"))
         mats.extend(sub.bank.host_csr_terms())
     if len(mats) != len(fv):
         raise ValueError(f"collected {len(mats)} operand matrices but "
@@ -125,19 +130,7 @@ def spmf_shift_block_lu(mats, fv, sigma, dtype=torch.float32, device=None):
     for wi, A in zip(w, mats):
         T = (A * wi) if sp.issparse(A) else sp.csr_matrix(np.asarray(A) * wi)
         M0 = T if M0 is None else M0 + T
-    n = M0.shape[0]
-    M0 = M0.tocoo()
-    dt = to_torch_dtype(dtype)
-    rows = torch.as_tensor(M0.row.astype(np.int64), device=device)
-    cols = torch.as_tensor(M0.col.astype(np.int64), device=device)
-    re = torch.as_tensor(M0.data.real, dtype=dt, device=device)
-    im = torch.as_tensor(M0.data.imag, dtype=dt, device=device)
-    blk = torch.zeros((2 * n, 2 * n), dtype=dt, device=device)
-    blk.index_put_((rows, cols), re, accumulate=True)
-    blk.index_put_((rows, cols + n), -im, accumulate=True)
-    blk.index_put_((rows + n, cols), im, accumulate=True)
-    blk.index_put_((rows + n, cols + n), re, accumulate=True)
-    return torch.linalg.lu_factor(blk)
+    return block_assemble_lu(M0, dtype, device)
 
 
 def _spmf_host_resnorm(mats, fv):

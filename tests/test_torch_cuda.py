@@ -116,15 +116,115 @@ def test_chip_refine_backend_on_the_card_matches_host(cuda):
 
 @pytest.mark.cuda
 def test_kernel_wrapper_rejects_bf16_and_strided(cuda):
+    """bfloat16 is taken when data and operands share it (mixed dtypes and
+    float16 are refused); a strided operand is refused in every dtype."""
     data = torch.zeros((2, 3, 10), dtype=torch.bfloat16, device=cuda)
     offs = torch.zeros(3, dtype=torch.int32, device=cuda)
+    y = dia_kernel.dia_lincomb(data, offs, torch.zeros(
+        (10, 2), dtype=torch.bfloat16, device=cuda))
+    assert y.dtype == torch.float32 and y.shape == (10,)
     with pytest.raises(TypeError):
-        dia_kernel.dia_lincomb(data, offs, torch.zeros((10, 2),
-                                                       dtype=torch.bfloat16,
-                                                       device=cuda))
+        dia_kernel.dia_lincomb(data, offs, torch.zeros((10, 2), device=cuda))
+    with pytest.raises(TypeError):
+        dia_kernel.dia_lincomb(data.to(torch.float16), offs, torch.zeros(
+            (10, 2), dtype=torch.float16, device=cuda))
+    with pytest.raises(ValueError, match="contiguous"):
+        dia_kernel.dia_lincomb(data, offs, torch.zeros(
+            (2, 10), dtype=torch.bfloat16, device=cuda).T)
     data = torch.zeros((2, 3, 10), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
         dia_kernel.dia_lincomb(data, offs, torch.zeros((2, 10), device=cuda).T)
+
+
+# the delay problem's bank shape (dep_symm_double: 2 terms, nine offsets)
+DEP_OFFS = [-101, -100, -99, -1, 0, 1, 99, 100, 101]
+
+
+# bf16 bank and operands, float32 sums and result: kernel and twin both sum
+# exact float32 products, in another order (a few float32 roundings per row)
+@pytest.mark.cuda
+@pytest.mark.parametrize("offs,n,m", [([-26, -25, -1, 0, 1, 25, 26], 700, 3),
+                                      (DEP_OFFS, 10_000, 2),
+                                      (list(range(-12, 13)), 700, 3)])
+def test_bf16_kernels_match_their_twins(cuda, offs, n, m):
+    tb = DiaTermBank.from_matrices(_mats(offs, n, m), dtype=np.float32,
+                                   device=cuda).astype(torch.bfloat16)
+    rng = np.random.default_rng(6)
+    Wre = torch.from_numpy(rng.standard_normal((n, m))).to(cuda,
+                                                           torch.bfloat16)
+    Wim = torch.from_numpy(rng.standard_normal((n, m))).to(cuda,
+                                                           torch.bfloat16)
+    before = dict(dia_kernel.DIA_SPMV.entry_counts)
+    y = tb.lincomb_apply(Wre)
+    yre, yim = tb.lincomb_apply_pair(Wre, Wim)
+    torch.cuda.synchronize()
+    after = dia_kernel.DIA_SPMV.entry_counts
+    # a bf16 CUDA operand launches the bf16 kernels, never the twin
+    assert after["dia_lincomb_bf16"] == before["dia_lincomb_bf16"] + 1
+    assert after["dia_lincomb_pair_bf16"] == (
+        before["dia_lincomb_pair_bf16"] + 1)
+    assert y.dtype == yre.dtype == yim.dtype == torch.float32
+    assert torch.equal(y, yre) and torch.equal(yim, tb.lincomb_apply(Wim))
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(tb.data, tb.offsets, Wre,
+                                                 Wim)
+    assert pre.dtype == torch.float32
+    assert rel_err(yre.cpu().numpy(), pre.cpu().numpy()) < 1e-5
+    assert rel_err(yim.cpu().numpy(), pim.cpu().numpy()) < 1e-5
+    # a float32 operand on a bf16 bank promotes to the float32 kernel
+    yf = tb.lincomb_apply(Wre.to(torch.float32))
+    assert yf.dtype == torch.float32
+    assert rel_err(yf.cpu().numpy(), pre.cpu().numpy()) < 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_kernels_at_the_dep_shape(cuda, dtype, rtol):
+    tb = DiaTermBank.from_matrices(_mats(DEP_OFFS, 10_000, 2), dtype=dtype,
+                                   device=cuda)
+    rng = np.random.default_rng(7)
+    Wre = torch.from_numpy(rng.standard_normal((10_000, 2))).to(cuda, dtype)
+    Wim = torch.from_numpy(rng.standard_normal((10_000, 2))).to(cuda, dtype)
+    yre, yim = tb.lincomb_apply_split(Wre, Wim)
+    assert torch.equal(yre, tb.lincomb_apply(Wre))
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(tb.data, tb.offsets, Wre,
+                                                 Wim)
+    assert rel_err(yre.cpu().numpy(), pre.cpu().numpy()) < rtol
+    assert rel_err(yim.cpu().numpy(), pim.cpu().numpy()) < rtol
+
+
+@pytest.mark.cuda
+def test_dep_scan_and_protocol_on_the_card(cuda):
+    """A small delay problem on the card: one float32 pair launch per
+    ``iar_real``/``tiar_real`` step, and the protocol solvers' Mlincomb
+    through the float64 pair kernel, against the CPU run."""
+    import neptpu_torch
+
+    # residual tolerance 1e-8 (absolute; the operator's entries are ~1e4)
+    kw = dict(sigma=-1.0, maxit=40, tol=1e-8, dtype=torch.float64)
+    # the CPU reference: every pair the float64 scan converges in 40 steps
+    before = dia_kernel.DIA_SPMV.launches
+    ref, _ = neptpu_torch.iar_real(
+        neptpu_torch.nep_gallery("dep_symm_double", 24, device=CPU),
+        neigs=40, device=CPU, **kw)
+    assert len(ref) >= 6 and dia_kernel.DIA_SPMV.launches == before
+    nep = neptpu_torch.nep_gallery("dep_symm_double", 24, device=cuda)
+    dia_kernel.DIA_SPMV.reset_counts()
+    l1, Q1, info = neptpu_torch.iar_real(nep, neigs=6, return_info=True,
+                                         device=cuda, **kw)
+    assert dia_kernel.DIA_SPMV.entry_counts["dia_lincomb_pair_f64"] >= (
+        info["k_done"]) == 40
+    l2, _ = neptpu_torch.tiar_real(nep, neigs=6, device=cuda, **kw)
+    l3, Q3, _ = neptpu_torch.tiar(nep, sigma=-1.0, maxit=30, neigs=3,
+                                  v=np.ones(nep.n), device=cuda)
+    lam, v = neptpu_torch.resinv(nep, lam=l1[0] * (1 + 1e-3), v=Q1[:, 0],
+                                 device=cuda)
+    assert dia_kernel.DIA_SPMV.counts["dia_lincomb"] == 0
+    assert v.is_cuda and Q3.is_cuda and len(l1) == len(l2) == 6
+    # each is an eigenvalue the CPU run found (modulo conjugation)
+    for x in list(l1) + list(l2) + list(l3) + [lam]:
+        assert min(np.min(np.abs(ref - x)),
+                   np.min(np.abs(ref - np.conj(x)))) / abs(x) < 1e-8
 
 
 @pytest.mark.cuda

@@ -16,6 +16,7 @@ from neptpu_torch.ops.mixed import make_mixed_bank
 from neptpu_torch.ops.partitioned import (BatchedShiftSMW,
                                           build_spmf_shift_solver)
 from neptpu_torch.ops.sparse import make_term_bank
+from neptpu_torch.solvers.iar_real import dep_shift_block_lu
 from neptpu_torch.solvers.refine import newton_refine
 from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
                                             iar_real_spmf,
@@ -61,7 +62,46 @@ def _calls(gun):
             mats, fv, [SMALL_SIGMA], dtype=torch.float64, device=d),
         "newton_refine_chip": lambda d: newton_refine(
             mats, fv, [SMALL_SIGMA], q, nsweeps=1, backend="chip", device=d),
+        "tiar_real_spmf": lambda d: neptpu_torch.tiar_real_spmf(
+            nep, sigma=SMALL_SIGMA, gamma=600.0, maxit=4, neigs=1,
+            dtype=torch.float64, device=d),
+        "DEP": lambda d: neptpu_torch.DEP([K, M], [0.0, 1.0], device=d),
+        **{f"nep_gallery_{g}": (lambda d, g=g: neptpu_torch.nep_gallery(
+            g, device=d)) for g in GALLERY_NAMES},
+        **{name: (lambda d, name=name: getattr(neptpu_torch, name)(
+            DEP_CPU(), sigma=-0.2, maxit=4, neigs=1, device=d))
+           for name in ("iar_real", "tiar_real")},
+        **{name: (lambda d, name=name: _partial(getattr(neptpu_torch, name))(
+            DEP_CPU(), sigma=-0.2, maxit=4, neigs=1, device=d))
+           for name in ("iar", "tiar")},
+        **{name: (lambda d, name=name: _partial(getattr(neptpu_torch, name))(
+            DEP_CPU(), lam=-0.29, maxit=5, device=d)) for name in NEWTONS},
+        "dep_shift_block_lu": lambda d: dep_shift_block_lu(
+            DEP_CPU(), -0.2, dtype=torch.float64, device=d),
     }
+
+
+GALLERY_NAMES = ["dep0", "dep0_sparse", "dep0_tridiag", "pep0", "pep0_sym",
+                 "pep0_sparse", "qep_fixed_eig", "dep1", "dep_symm_double",
+                 "dep_double"]
+NEWTONS = ["newton", "augnewton", "resinv", "quasinewton", "newtonqr",
+           "implicitdet"]
+
+
+def DEP_CPU():
+    """A small delay problem that lives on the CPU."""
+    return neptpu_torch.nep_gallery("dep0_tridiag", 40, device=CPU)
+
+
+def _partial(solver):
+    """A protocol solver whose early stop (too few steps to converge) counts
+    as having run."""
+    def run(*args, **kw):
+        try:
+            return solver(*args, **kw)
+        except neptpu_torch.NoConvergenceException:
+            return None
+    return run
 
 
 ENTRY_POINTS = ["nep_gallery_gun_like", "nep_gallery_waveguide", "PEP",
@@ -69,7 +109,10 @@ ENTRY_POINTS = ["nep_gallery_gun_like", "nep_gallery_waveguide", "PEP",
                 "make_mixed_bank", "DiaTermBank.from_matrices",
                 "build_spmf_shift_solver", "spmf_shift_block_lu",
                 "iar_real_spmf", "iar_real_spmf_multishift",
-                "BatchedShiftSMW", "newton_refine_chip"]
+                "BatchedShiftSMW", "newton_refine_chip", "tiar_real_spmf",
+                "DEP", "iar_real", "tiar_real", "iar", "tiar",
+                "dep_shift_block_lu"] + NEWTONS + [
+                    f"nep_gallery_{g}" for g in GALLERY_NAMES]
 
 
 @pytest.mark.parametrize("name", ENTRY_POINTS)
@@ -80,6 +123,20 @@ def test_device_none_raises_without_a_card(gun, name):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         call(None)
     call(CPU)  # and the same call runs when the CPU is asked for
+
+
+def test_solver_refuses_a_problem_on_another_device():
+    """A protocol solver runs where its problem lives: asked for another
+    device it raises instead of moving anything."""
+    from neptpu_torch.solvers.common import nep_device, solver_device
+
+    nep = DEP_CPU()
+    assert nep_device(nep) == torch.device("cpu")
+    assert solver_device(nep, "cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="operands are on cpu"):
+        solver_device(nep, "meta")
+    with pytest.raises(ValueError, match="operands are on cpu"):
+        neptpu_torch.resinv(nep, lam=-0.29, device="meta")
 
 
 def test_resolve_device_prefers_the_callers_objects(gun):

@@ -16,6 +16,22 @@ import neptpu_torch.models.gallery.waveguide
 import neptpu_torch.ops.partitioned
 from neptpu_torch.solvers.refine import newton_refine, resinv_refine
 from neptpu_torch.ops.partitioned import BatchedShiftSMW
+import neptpu_torch.core.errmeasure, neptpu_torch.core.exceptions
+import neptpu_torch.core.logger, neptpu_torch.ops.lapack
+import neptpu_torch.ops.orth, neptpu_torch.ops.linsolve
+import neptpu_torch.solvers.common, neptpu_torch.solvers.iar
+import neptpu_torch.solvers.tiar, neptpu_torch.solvers.rf
+import neptpu_torch.solvers.newton, neptpu_torch.solvers.iar_real
+import neptpu_torch.solvers.tiar_real, neptpu_torch.models.dep
+import neptpu_torch.models.gallery.msws, neptpu_torch.models.gallery.basic
+import neptpu_torch.models.gallery.examples
+dep = neptpu_torch.nep_gallery('dep0_tridiag', 40, device='cpu')
+neptpu_torch.iar_real(dep, sigma=-0.2, maxit=8, neigs=1, device='cpu')
+neptpu_torch.tiar_real(dep, sigma=-0.2, maxit=8, neigs=1, device='cpu')
+neptpu_torch.resinv(neptpu_torch.nep_gallery('dep0', device='cpu'),
+                    lam=-0.5, device='cpu')
+for name in neptpu_torch.__all__:
+    getattr(neptpu_torch, name)
 nep = neptpu_torch.nep_gallery('waveguide', nx=5, nz=3, neptype='SPMF',
                                device='cpu')
 bad = sorted(m for m in sys.modules
@@ -26,6 +42,28 @@ print(','.join(bad))
 
 def test_import_loads_no_jax_and_no_neptpu():
     out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "", out.stdout
+
+
+def test_every_module_of_the_port_imports_alone():
+    """Each module under ``neptpu_torch`` imports in a fresh interpreter's
+    module table without JAX or the JAX package appearing."""
+    pkg = os.path.join(REPO, "neptpu_torch")
+    mods = []
+    for root, _, names in os.walk(pkg):
+        for f in sorted(names):
+            if f.endswith(".py"):
+                rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
+                mods.append(rel.replace(os.sep, ".").removesuffix(
+                    ".__init__"))
+    assert len(mods) >= 40
+    probe = ("import importlib, sys\n"
+             f"for m in {mods!r}:\n    importlib.import_module(m)\n"
+             "print(','.join(sorted(m for m in sys.modules if "
+             "m.split('.')[0] in ('jax', 'jaxlib', 'neptpu'))))")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "", out.stdout

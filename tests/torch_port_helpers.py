@@ -74,6 +74,29 @@ def backward_errmeasure(mats, fv, fun_scalars):
     return err
 
 
+# shift of the delay-problem parity tests (dep0_tridiag)
+DEP_SIGMA = -0.2 + 0.1j
+
+
+def gallery_pair(name, *args):
+    """The same gallery problem from the port (on the CPU) and from the JAX
+    package."""
+    import neptpu
+    import neptpu_torch
+
+    return (neptpu_torch.nep_gallery(name, *args, device=CPU),
+            neptpu.nep_gallery(name, *args))
+
+
+def conj_set_gap(a, b):
+    """Largest relative distance from a value of ``a`` to the nearest of
+    ``b`` or its conjugates (a real problem's spectrum is closed under
+    conjugation, and a solver may return either member of a pair)."""
+    a, b = np.asarray(a), np.asarray(b)
+    return max(min(np.min(np.abs(b - x)), np.min(np.abs(b - np.conj(x))))
+               / abs(x) for x in a)
+
+
 def rel_err(a, b):
     a = np.asarray(a)
     b = np.asarray(b)
