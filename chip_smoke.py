@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (``neptpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--profile TRACE.json]
+    python3 chip_smoke.py [--profile TRACE.json] [--parent DIR]
 
 Phases, a few informative lines each (any failure exits non-zero):
 
 1. device: ``nvidia-smi`` name and power limit, torch and CUDA versions;
 2. build: compile the hand-written DIA SpMV kernels (``neptpu_torch/csrc/
    dia_spmv.cu``) with nvcc for sm_90a, timed apart from everything else;
-3. kernels vs. their plain PyTorch twins on the card: the single-operand
+3. kernels vs. their plain PyTorch twins on the card, through the prepared
+   launcher (``DiaLauncher``) on term-major operands: the single-operand
    kernel at four shapes (gun_like's bank in float32 and float64, the SpMV
    headline shape of ``bench.py``, a synthetic 211-diagonal bank) and the
    re/im pair kernel at the gun_like, wep, wep_large and headline shapes (each
@@ -16,17 +17,26 @@ Phases, a few informative lines each (any failure exits non-zero):
    here); both again at the delay problem's shape (n = 1e4, 2 terms, the 9
    offsets of ``dep_symm_double``) in float32 and float64; and the bfloat16
    kernels (bf16 bank and operands, float32 sums and result), single and
-   pair, at the headline and the delay shape — max
+   pair, at the headline and the delay shape - max
    relative error against the twin within the stated tolerance, the pair
    equal to two single launches, median CUDA-event times of kernel, twin and
    the nearest library calls (a ``torch.sparse`` CSR product of the stacked
-   bank; the port's own CSR bank), and each time's bound from the bytes moved;
+   bank; the port's own CSR bank), and each time's bound from the bytes moved.
+   Every time is read as the host makes the calls (eager) and, for
+   n <= 1e5, a second time under CUDA-graph replay (ten launches captured,
+   replayed: the device's time per launch), the library product and the
+   empty-kernel floor the same two ways.  Where ``--parent`` holds an
+   unpacked copy of the parent commit, that commit's kernel body is built
+   as a second library and timed in turns (old, new, new, old) beside the
+   present one, and its results must equal the present ones bit for bit;
 4. main paths, through the entry points a user calls, each with the kernel
    launch counts set to 0 just before and read just after:
    * SpMV headline: a DIA bank at n = 1e6 (4 terms x 9 diagonals) applied
-     through ``DiaTermBank.lincomb_apply``, in float32 and as a bfloat16
-     bank (single and re/im pair apply), each row within its rounding bound
-     of the scipy product;
+     through ``DiaTermBank.lincomb_apply_t`` (the operand term-major, as
+     the models and the scans form it) and through the row-major entry
+     ``lincomb_apply`` (which transposes first), in float32 and as a
+     bfloat16 bank (single and re/im pair apply), each row within its
+     rounding bound of the scipy product;
    * gun_like (n = 9956): float32 complex-as-real IAR (SPIKE + SMW shifted
      solve, kernel-backed bank apply) -> cluster -> Newton refinement to
      backward error 1e-9 (driven toward 1e-11), the ``bench.py`` protocol;
@@ -59,11 +69,18 @@ Phases, a few informative lines each (any failure exits non-zero):
    against the host backend: >= 10 distinct at 1e-9, eigenvalues within rel
    1e-9 of the host backend's.
 
+With ``--profile``, one shift's factorization and scan of gun_like and of wep
+run once more under ``torch.profiler`` (device busy share, time by kernel),
+and the device operations per scan step at gun_like, wep and dep are counted,
+the copy and gather kernels among them apart.
+
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
 CUDA device the script exits non-zero and prints no result.
 """
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -199,12 +216,16 @@ def phase_build(dia_kernel):
     t0 = time.perf_counter()
     dia_kernel.build_kernel()
     dt = time.perf_counter() - t0
-    regs = [ln.split(":", 1)[1].strip() for ln in
-            dia_kernel.DIA_SPMV.build_log.splitlines() if "registers" in ln]
+    log = dia_kernel.DIA_SPMV.build_log
+    regs = [int(x) for x in re.findall(r"Used (\d+) registers", log)]
+    spills = [int(x) for x in re.findall(r"(\d+) bytes spill stores", log)]
     built = dia_kernel.DIA_SPMV.build_seconds
     print(f"[build] {dia_kernel.DIA_SPMV.library_path()} in {dt:.3f} s "
           f"(nvcc {'%.3f s' % built if built is not None else 'cached'}); "
-          f"ptxas: {' | '.join(regs) or 'n/a'}", flush=True)
+          f"ptxas: {len(regs)} kernels, registers "
+          f"{min(regs, default=0)}-{max(regs, default=0)}, spill stores "
+          f"{sum(spills)} B in {sum(1 for x in spills if x)} kernels",
+          flush=True)
 
 
 def _median_ms(torch, fn, reps=20, inner=10):
@@ -242,10 +263,115 @@ def _bound(n, m, ndiag, noperands, itemsize, dtype_name):
             else (t_ops, "operations", nbytes))
 
 
+def _graph_ms(torch, fn, reps=20, inner=10, replays=5):
+    """Median over ``reps`` of CUDA-event time per call of ``inner``
+    back-to-back calls captured into one CUDA graph and replayed ``replays``
+    times: the device's time per launch, free of the rate at which the host launches.
+    None (with a printed reason) where ``fn`` cannot be captured."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            for _ in range(inner):
+                fn()
+    except RuntimeError as e:
+        torch.cuda.synchronize()
+        print(f"[kernel] not capturable into a CUDA graph: "
+              f"{str(e).splitlines()[0][:100]}", flush=True)
+        return None
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / (inner * replays))
+    del graph
+    return float(np.median(times))
+
+
+def _in_turns(torch, timer, old, new):
+    """``(old_ms, new_ms)`` timed old, new, new, old on the same card, the
+    mean of each one's two readings; ``old`` None: the new one alone."""
+    if old is None:
+        return None, timer(torch, new)
+    t = [timer(torch, f) for f in (old, new, new, old)]
+    if any(x is None for x in t):
+        return None, t[1]
+    return (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+
+
+class ParentBody:
+    """The kernels of the parent commit's ``dia_spmv.cu`` (one thread per
+    row, offsets from a device array, row-major operand ``W (n, m)``), built
+    as a second library from an unpacked copy of that commit and launched
+    through a bare ctypes call, for timing beside the present body in the
+    same run.  A measurement input: the port itself never loads it."""
+
+    SUFFIX = {"float32": "f32", "float64": "f64", "bfloat16": "bf16"}
+
+    def __init__(self, torch, dia_kernel, source):
+        import ctypes
+
+        self.torch = torch
+        library = dia_kernel.KernelLibrary("dia_spmv_parent", source)
+        self.lib = ctypes.CDLL(library.build())
+        self.build_seconds = library.build_seconds
+        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        for sfx in self.SUFFIX.values():
+            fn = getattr(self.lib, f"dia_lincomb_{sfx}")
+            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+            fn.restype = i32
+            fn = getattr(self.lib, f"dia_lincomb_pair_{sfx}")
+            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+            fn.restype = i32
+
+    def prepare(self, data, offs, WT, WimT):
+        """Closures ``(single, pair)`` on the row-major copies of the
+        operands; each call allocates its result and launches once."""
+        torch = self.torch
+        m, ndiag, n = data.shape
+        sfx = self.SUFFIX[str(data.dtype).split(".")[1]]
+        f1 = getattr(self.lib, f"dia_lincomb_{sfx}")
+        f2 = getattr(self.lib, f"dia_lincomb_pair_{sfx}")
+        offs_dev = torch.tensor(offs, dtype=torch.int32, device=data.device)
+        W, Wim = WT.T.contiguous(), WimT.T.contiguous()
+        rdt = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+
+        def single():
+            y = torch.empty(n, dtype=rdt, device=data.device)
+            rc = f1(data.data_ptr(), offs_dev.data_ptr(), W.data_ptr(),
+                    y.data_ptr(), n, m, ndiag,
+                    torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"parent body: launch failed ({rc})")
+            return y
+
+        def pair():
+            y = torch.empty((2, n), dtype=rdt, device=data.device)
+            rc = f2(data.data_ptr(), offs_dev.data_ptr(), W.data_ptr(),
+                    Wim.data_ptr(), y[0].data_ptr(), y[1].data_ptr(), n, m,
+                    ndiag, torch.cuda.current_stream().cuda_stream)
+            check(rc == 0, f"parent body: pair launch failed ({rc})")
+            return y[0], y[1]
+
+        return single, pair
+
+
 def _stacked_csr(torch, data, offs):
-    """The bank as ONE ``torch.sparse`` CSR matrix (n, n*m) acting on the
-    row-major flattening of W (n, m): ``y = A @ W.reshape(-1)`` is the fused
-    apply — the library yardstick, used nowhere in the port."""
+    """The bank as ONE ``torch.sparse`` CSR matrix (n, m*n) acting on the
+    flattening of the term-major WT (m, n): ``y = A @ WT.reshape(-1)`` is the
+    fused apply - the library yardstick, used nowhere in the port."""
     m, ndiag, n = data.shape
     r = torch.arange(n, device=data.device)
     rows, cols, vals = [], [], []
@@ -253,7 +379,7 @@ def _stacked_csr(torch, data, offs):
         ok = (r + off >= 0) & (r + off < n)
         for i in range(m):
             rows.append(r[ok])
-            cols.append((r[ok] + off) * m + i)
+            cols.append(i * n + r[ok] + off)
             vals.append(data[i, d][ok])
     A = torch.sparse_coo_tensor(
         torch.stack([torch.cat(rows), torch.cat(cols)]), torch.cat(vals),
@@ -261,12 +387,13 @@ def _stacked_csr(torch, data, offs):
     return A.to_sparse_csr()
 
 
-def _library_times(torch, data, offs, W, Wim, y_plain, tol):
-    """(single_ms, pair_ms) of the ``torch.sparse`` CSR product on the same
-    operands, checked against the plain result first.  (None, None) where
-    this build has no sparse CSR product for the dtype (bfloat16)."""
-    w1 = W.reshape(-1)
-    w2 = torch.stack([W.reshape(-1), Wim.reshape(-1)], dim=1)
+def _library_times(torch, data, offs, WT, WimT, y_plain, tol):
+    """``{"mv": (eager_ms, graph_ms), "mm": ...}`` of the ``torch.sparse``
+    CSR product on the same operands (graph replay for n <= 1e5), checked
+    against the plain result first.  None where this build has no sparse CSR
+    product for the dtype."""
+    w1 = WT.reshape(-1)
+    w2 = torch.stack([WT.reshape(-1), WimT.reshape(-1)], dim=1)
     try:
         A = _stacked_csr(torch, data, offs)
         y_lib = (A @ w1).to(y_plain.dtype)
@@ -278,19 +405,28 @@ def _library_times(torch, data, offs, W, Wim, y_plain, tol):
         print(f"[kernel] no torch.sparse CSR product in {data.dtype} on this "
               f"build ({str(e).splitlines()[0][:80]}): library call none",
               flush=True)
-        return None, None
+        return None
     if data.dtype == torch.bfloat16:
         tol = 5e-2  # the library rounds its result (and may sum) in bf16
     rel = float((y_lib - y_plain).abs().max() / y_plain.abs().max())
     check(rel <= tol, f"library CSR product disagrees with the plain "
                       f"version ({rel:.3e})")
-    reps, inner = (5, 5) if data.shape[2] > 100_000 else (20, 10)
-    return (_median_ms(torch, lambda: A @ w1, reps, inner),
-            _median_ms(torch, lambda: A @ w2, reps, inner))
+    small = data.shape[2] <= 100_000
+    reps, inner = (20, 10) if small else (5, 5)
+    out = {}
+    for key, fn in (("mv", lambda: A @ w1), ("mm", lambda: A @ w2)):
+        out[key] = (_median_ms(torch, fn, reps, inner),
+                    _graph_ms(torch, fn) if small else None)
+    return out
 
 
-def phase_kernel_checks(torch, dia_kernel, gun_bank):
-    """Both kernels vs. their plain twins; returns rows keyed by shape."""
+def _us(ms):
+    return "n/a" if ms is None else f"{ms * 1e3:.2f}"
+
+
+def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None):
+    """Both kernels vs. their plain twins; returns rows keyed by shape.
+    ``parent``: a :class:`ParentBody` to time in turns beside the kernels."""
     from neptpu_torch.ops.sparse import make_term_bank
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -301,7 +437,7 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
     bf16 = torch.bfloat16
     # name, data (None: random) or dtype, offsets, n, m, tolerance (relative
     # to max |y|: a few roundings of the accumulator's dtype per row, sums
-    # reordered — the bfloat16 kernels and their twins both sum exact
+    # reordered - the bfloat16 kernels and their twins both sum exact
     # products in float32), check the pair too
     shapes = [
         ("gun_like f32", gun_bank.data.to(torch.float32), gun_bank.offsets,
@@ -317,10 +453,14 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
         ("headline bf16", bf16, head_offs, HEADLINE_N, HEADLINE_M, 1e-5, True),
         ("dep bf16", bf16, dp[1], dp[2], dp[0], 1e-5, True),
     ]
-    # the launch floor: an empty kernel through the same ctypes route
+    # the launch floor: an empty kernel through the same ctypes route, as
+    # the host launches it and under graph replay
     floor_ms = _median_ms(torch, lambda: dia_kernel.empty_launch(DEVICE))
+    floor_graph_ms = _graph_ms(torch, lambda: dia_kernel.empty_launch(DEVICE))
     print(f"[kernel] empty-kernel launch floor {floor_ms * 1e3:.2f} us per "
-          "call (ctypes + launch, back to back)", flush=True)
+          "call (ctypes + launch, back to back), "
+          f"{_us(floor_graph_ms)} us per launch under CUDA-graph replay (10 "
+          "launches a graph)", flush=True)
     rows = {}
     for name, data, offs, n, m, tol, pair in shapes:
         if data is None or isinstance(data, torch.dtype):
@@ -330,81 +470,115 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
         data = data.contiguous()
         m, ndiag, n = data.shape
         dtn = str(data.dtype).split(".")[1]
-        W = torch.randn((n, m), generator=gen, device=DEVICE,
-                        dtype=torch.float32).to(data.dtype)
-        Wim = torch.randn((n, m), generator=gen, device=DEVICE,
-                          dtype=torch.float32).to(data.dtype)
-        offs_dev = torch.tensor(offs, dtype=torch.int32, device=DEVICE)
-        y = dia_kernel.dia_lincomb(data, offs_dev, W)
+        small = n <= 100_000
+        reps, inner = (20, 10) if small else (10, 10)
+        WT = torch.randn((m, n), generator=gen, device=DEVICE,
+                         dtype=torch.float32).to(data.dtype)
+        WimT = torch.randn((m, n), generator=gen, device=DEVICE,
+                           dtype=torch.float32).to(data.dtype)
+        # the bank prepared once, as DiaTermBank prepares it
+        launcher = dia_kernel.DiaLauncher(data, offs)
+        y = launcher.single(WT)
         torch.cuda.synchronize()
-        y_plain = dia_kernel.dia_lincomb_plain(data, offs, W)
+        y_plain = dia_kernel.dia_lincomb_plain(data, offs, WT)
         abs_err = float((y - y_plain).abs().max())
         rel = abs_err / float(y_plain.abs().max())
         check(bool(torch.isfinite(y).all()), f"{name}: non-finite output")
         check(y.dtype == dia_kernel.result_dtype(data.dtype),
               f"{name}: result in {y.dtype}")
-        ms = _median_ms(torch, lambda: dia_kernel.dia_lincomb(data, offs_dev,
-                                                              W))
+        check(torch.equal(y, dia_kernel.dia_lincomb(data, offs, WT)),
+              f"{name}: prepared and functional entry differ")
+        old1 = old2 = None
+        same_as_parent = None
+        if parent is not None:
+            old1, old2 = parent.prepare(data, offs, WT, WimT)
+            same_as_parent = bool(torch.equal(old1(), y))
+
+        def timer(torch, fn):
+            return _median_ms(torch, fn, reps, inner)
+
+        old_ms, ms = _in_turns(torch, timer, old1, lambda: launcher.single(WT))
+        old_graph_ms = graph_ms = None
+        if small:
+            old_graph_ms, graph_ms = _in_turns(
+                torch, _graph_ms, old1, lambda: launcher.single(WT))
         plain_ms = _median_ms(torch, lambda: dia_kernel.dia_lincomb_plain(
-            data, offs, W))
+            data, offs, WT), reps, inner)
         bound_ms, by, nbytes = _bound(n, m, ndiag, 1, data.element_size(),
                                       dtn)
-        lib_ms = lib_pair_ms = csr_ms = None
+        lib = None
+        csr_ms = None
         if pair:
-            lib_ms, lib_pair_ms = _library_times(torch, data, offs, W, Wim,
-                                                 y_plain, tol)
-        print(f"[kernel] {name}: n={n} m={m} ndiag={ndiag} max_rel_err="
+            lib = _library_times(torch, data, offs, WT, WimT, y_plain, tol)
+        lib_ms, lib_graph_ms = lib["mv"] if lib else (None, None)
+        print(f"[kernel] {name}: n={n} m={m} ndiag={ndiag} rows/thread="
+              f"{launcher.vec} max_rel_err="
               f"{rel:.3e} (tol {tol:g}) max_abs_err={abs_err:.3e} kernel "
-              f"{ms * 1e3:.2f} us ({nbytes / ms / 1e6:.1f} GB/s) plain "
-              f"{plain_ms * 1e3:.2f} us bound {bound_ms * 1e3:.3f} us by {by} "
-              f"({nbytes} B at 3.35 TB/s) sparse-CSR "
-              f"{'%.2f us' % (lib_ms * 1e3) if lib_ms else 'n/a'}",
-              flush=True)
+              f"{ms * 1e3:.2f} us eager ({nbytes / ms / 1e6:.1f} GB/s), "
+              f"{_us(graph_ms)} us graph replay; parent body "
+              f"{_us(old_ms)} us eager, {_us(old_graph_ms)} us graph replay, "
+              f"bit-equal to it: {same_as_parent}; plain "
+              f"{plain_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us by {by} "
+              f"({nbytes} B at 3.35 TB/s); sparse-CSR mv {_us(lib_ms)} us "
+              f"eager, {_us(lib_graph_ms)} us graph replay", flush=True)
         check(rel <= tol, f"{name}: kernel disagrees with its twin "
                           f"(max rel err {rel:.3e} > {tol:g})")
+        check(same_as_parent is not False,
+              f"{name}: result differs from the parent body's")
         row = {"shape": name, "n": n, "m": m, "ndiag": ndiag,
                "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
+               "graph_ms": graph_ms, "parent_ms": old_ms,
+               "parent_graph_ms": old_graph_ms,
+               "library_graph_ms": lib_graph_ms,
                "gbs": nbytes / ms / 1e6, "nbytes": nbytes}
         rows[name] = row
         if not pair:
             continue
         # the pair kernel: against its twin, and equal to two single launches
-        yre, yim = dia_kernel.dia_lincomb_pair(data, offs_dev, W, Wim)
+        yre, yim = launcher.pair(WT, WimT)
         torch.cuda.synchronize()
-        pre, pim = dia_kernel.dia_lincomb_pair_plain(data, offs, W, Wim)
+        pre, pim = dia_kernel.dia_lincomb_pair_plain(data, offs, WT, WimT)
         p_abs = float(max((yre - pre).abs().max(), (yim - pim).abs().max()))
         p_rel = p_abs / float(max(pre.abs().max(), pim.abs().max()))
-        y2 = dia_kernel.dia_lincomb(data, offs_dev, Wim)
+        y2 = launcher.single(WimT)
         equal = bool(torch.equal(yre, y) and torch.equal(yim, y2))
-        pair_ms = _median_ms(torch, lambda: dia_kernel.dia_lincomb_pair(
-            data, offs_dev, W, Wim))
+        old_pair_ms, pair_ms = _in_turns(
+            torch, timer, old2, lambda: launcher.pair(WT, WimT))
+        old_pair_graph_ms = pair_graph_ms = None
+        if small:
+            old_pair_graph_ms, pair_graph_ms = _in_turns(
+                torch, _graph_ms, old2, lambda: launcher.pair(WT, WimT))
 
         def two_singles():
-            dia_kernel.dia_lincomb(data, offs_dev, W)
-            dia_kernel.dia_lincomb(data, offs_dev, Wim)
+            launcher.single(WT)
+            launcher.single(WimT)
 
-        two_ms = _median_ms(torch, two_singles)
+        two_ms = _median_ms(torch, two_singles, reps, inner)
         pair_plain_ms = _median_ms(
-            torch, lambda: dia_kernel.dia_lincomb_pair_plain(data, offs, W,
-                                                             Wim))
+            torch, lambda: dia_kernel.dia_lincomb_pair_plain(data, offs, WT,
+                                                             WimT),
+            reps, inner)
         pb_ms, pby, pbytes = _bound(n, m, ndiag, 2, data.element_size(), dtn)
-        if n <= 100_000 and data.dtype == torch.float32:
+        if small and data.dtype == torch.float32:
             # the port's own CSR bank on the same operands (two applies)
             mats = [A.tocsr() for A in _bank_terms(data, offs)]
             csr = make_term_bank(mats, dtype=np.float32, fmt="csr",
                                  device=DEVICE)
+            W, Wim = WT.T.contiguous(), WimT.T.contiguous()
             csr_ms = _median_ms(torch, lambda: (csr.lincomb_apply(W),
                                                 csr.lincomb_apply(Wim)))
+        lib_pair_ms, lib_pair_graph_ms = lib["mm"] if lib else (None, None)
         print(f"[kernel] {name} pair: max_rel_err={p_rel:.3e} (tol {tol:g}) "
               f"equal_to_two_singles={equal} pair {pair_ms * 1e3:.2f} us "
-              f"({pbytes / pair_ms / 1e6:.1f} GB/s) 2x single "
-              f"{two_ms * 1e3:.2f} us plain {pair_plain_ms * 1e3:.2f} us "
-              f"bound {pb_ms * 1e3:.3f} us by {pby} ({pbytes} B) sparse-CSR "
-              f"{'%.2f us' % (lib_pair_ms * 1e3) if lib_pair_ms else 'n/a'} "
-              "CSR-bank x2 "
-              f"{'%.2f us' % (csr_ms * 1e3) if csr_ms else 'n/a'}",
-              flush=True)
+              f"eager ({pbytes / pair_ms / 1e6:.1f} GB/s), "
+              f"{_us(pair_graph_ms)} us graph replay; parent body "
+              f"{_us(old_pair_ms)} us eager, {_us(old_pair_graph_ms)} us "
+              f"graph replay; 2x single {two_ms * 1e3:.2f} us; plain "
+              f"{pair_plain_ms * 1e3:.2f} us; bound {pb_ms * 1e3:.3f} us by "
+              f"{pby} ({pbytes} B); sparse-CSR mm {_us(lib_pair_ms)} us "
+              f"eager, {_us(lib_pair_graph_ms)} us graph replay; CSR-bank x2 "
+              f"{_us(csr_ms)} us", flush=True)
         check(p_rel <= tol, f"{name}: pair kernel disagrees with its twin "
                             f"(max rel err {p_rel:.3e} > {tol:g})")
         check(equal, f"{name}: pair kernel differs from two single launches")
@@ -412,6 +586,9 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank):
             "shape": name, "n": n, "m": m, "ndiag": ndiag,
             "max_abs_err": p_abs, "ms": pair_ms, "plain_ms": pair_plain_ms,
             "bound_ms": pb_ms, "bound_by": pby, "library_ms": lib_pair_ms,
+            "graph_ms": pair_graph_ms, "parent_ms": old_pair_ms,
+            "parent_graph_ms": old_pair_graph_ms,
+            "library_graph_ms": lib_pair_graph_ms,
             "two_singles_ms": two_ms, "csr_bank_ms": csr_ms,
             "nbytes": pbytes}
     # same-run bandwidth reference: a device copy of 1 GiB (20x the L2)
@@ -455,68 +632,77 @@ def phase_spmv_path(torch, dia_kernel):
     dia_kernel.DIA_SPMV.reset_counts()
     bank = make_term_bank(mats, dtype=np.float32, device=DEVICE)
     t_build = time.perf_counter() - t0
-    W = torch.from_numpy(rng.standard_normal((n, HEADLINE_M)).astype(
+    # the operand term-major (terms, n), as the scans hold theirs
+    WT = torch.from_numpy(rng.standard_normal((HEADLINE_M, n)).astype(
         np.float32)).to(DEVICE)
+    W = WT.T.contiguous()  # the same operand row-major (n, terms)
     ncalls = 50
-    y = bank.lincomb_apply(W)
-    torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(ncalls):
-        y = bank.lincomb_apply(W)
-    b.record()
-    b.synchronize()
-    ms = a.elapsed_time(b) / ncalls
+
+    def per_apply(apply, operand):
+        """(result, ms per apply) over ``ncalls`` back-to-back applies."""
+        y = apply(operand)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(ncalls):
+            y = apply(operand)
+        b.record()
+        b.synchronize()
+        return y, a.elapsed_time(b) / ncalls
+
+    y, ms = per_apply(bank.lincomb_apply_t, WT)
+    y_rows, ms_rows = per_apply(bank.lincomb_apply, W)
     counts = dict(dia_kernel.DIA_SPMV.counts)
     # correctness by the repo's own means: the scipy terms themselves
-    ref = sum(A @ W[:, i].cpu().numpy() for i, A in enumerate(mats))
+    ref = sum(A @ WT[i].cpu().numpy() for i, A in enumerate(mats))
     rel = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
     nnz = sum(A.nnz for A in mats)
     print(f"[main] spmv headline n={n} terms={HEADLINE_M} ndiag={len(offs)} "
           f"({type(bank).__name__}): {ms * 1e3:.2f} us per apply = "
-          f"{nnz / ms / 1e6:.2f} Gnnz/s, max_rel_err vs scipy {rel:.3e}, "
+          f"{nnz / ms / 1e6:.2f} Gnnz/s term-major (lincomb_apply_t), "
+          f"{ms_rows * 1e3:.2f} us per apply row-major (lincomb_apply: "
+          f"transpose copy + kernel), max_rel_err vs scipy {rel:.3e}, "
           f"host build {t_build:.2f} s, launches {counts}", flush=True)
     check(rel <= 1e-5, f"headline apply disagrees with scipy ({rel:.3e})")
-    check(counts["dia_lincomb"] >= ncalls + 1,
+    check(torch.equal(y, y_rows), "headline: the row-major entry differs "
+                                  "from the term-major one")
+    check(counts["dia_lincomb"] == 2 * (ncalls + 1),
           f"headline path launched the kernel {counts['dia_lincomb']} times "
-          f"in {ncalls + 1} applies")
+          f"in {2 * (ncalls + 1)} applies")
 
     # the same bank at half width: bfloat16 values and operand, float32 sums
     bank16 = bank.astype(torch.bfloat16)
-    W16, W16b = W.to(torch.bfloat16), W.flip(0).to(torch.bfloat16)
-    y16 = bank16.lincomb_apply(W16)
-    torch.cuda.synchronize()
-    a.record()
-    for _ in range(ncalls):
-        y16 = bank16.lincomb_apply(W16)
-    b.record()
-    b.synchronize()
-    ms16 = a.elapsed_time(b) / ncalls
-    yre, yim = bank16.lincomb_apply_pair(W16, W16b)
+    W16, W16b = WT.to(torch.bfloat16), WT.flip(1).to(torch.bfloat16)
+    y16, ms16 = per_apply(bank16.lincomb_apply_t, W16)
+    y16_rows, ms16_rows = per_apply(bank16.lincomb_apply, W16.T.contiguous())
+    yre, yim = bank16.lincomb_apply_pair_t(W16, W16b)
     torch.cuda.synchronize()
     entry = dict(dia_kernel.DIA_SPMV.entry_counts)
     # rounding bank and operand to bfloat16 moves each product by at most
     # 2^-8 of itself (2^-9 per factor): |dy[r]| <= 2^-7 sum |data W| holds
     # with room for the float32 sum
     worst = 0.0
-    for yk, Wk in ((y16, W), (yre, W), (yim, W.flip(0))):
+    for yk, Wk in ((y16, WT), (yre, WT), (yim, WT.flip(1))):
         Wh = Wk.cpu().numpy().astype(np.float64)
-        refk = sum(A @ Wh[:, i] for i, A in enumerate(mats))
-        room = sum(abs(A) @ np.abs(Wh[:, i]) for i, A in enumerate(mats))
+        refk = sum(A @ Wh[i] for i, A in enumerate(mats))
+        room = sum(abs(A) @ np.abs(Wh[i]) for i, A in enumerate(mats))
         worst = max(worst, float(np.max(
             np.abs(yk.cpu().numpy() - refk) / np.maximum(room, 1e-30))))
     print(f"[main] spmv headline bf16 bank ({bank16.data.dtype} -> "
           f"{y16.dtype}): {ms16 * 1e3:.2f} us per apply = "
           f"{nnz / ms16 / 1e6:.2f} Gnnz/s ({ms / ms16:.2f}x the float32 "
-          f"apply), single and pair max |dy| / sum|data W| per row "
+          f"apply) term-major, {ms16_rows * 1e3:.2f} us row-major, single "
+          f"and pair max |dy| / sum|data W| per row "
           f"{worst:.3e} (bound 2^-7 = {2**-7:.3e}), launches "
           f"{ {k: v for k, v in entry.items() if v} }", flush=True)
     check(y16.dtype == torch.float32 and yre.dtype == torch.float32,
           "bf16 apply did not return float32")
     check(worst <= 2**-7, f"bf16 headline apply off by {worst:.3e} of its "
                           "row's sum |data W| (bound 2^-7)")
-    check(entry["dia_lincomb_bf16"] == ncalls + 1
+    check(torch.equal(y16, y16_rows), "bf16 headline: the row-major entry "
+                                      "differs from the term-major one")
+    check(entry["dia_lincomb_bf16"] == 2 * (ncalls + 1)
           and entry["dia_lincomb_pair_bf16"] == 1,
           f"bf16 headline applies launched {entry}")
     return {"counts": dict(dia_kernel.DIA_SPMV.counts), "entry": entry}
@@ -664,11 +850,11 @@ def phase_wep_bank_share(torch, key, cfg, out):
           f"{key}: the main path's DIA bank is (m, offsets, n) = {built}, "
           f"the kernel checks ran at {wep_bank_shape(cfg)}")
     gen = torch.Generator(device=DEVICE).manual_seed(1)
-    # the scan hands the bank transposed (terms, n) products
-    Wre = torch.randn((bank.nterms, bank.n), generator=gen, device=DEVICE).T
-    Wim = torch.randn((bank.nterms, bank.n), generator=gen, device=DEVICE).T
-    full = _median_ms(torch, lambda: bank.lincomb_apply_split(Wre, Wim))
-    main = _median_ms(torch, lambda: bank._main_pair(Wre, Wim))
+    # the scan hands the bank its term-major (terms, n) products
+    WreT = torch.randn((bank.nterms, bank.n), generator=gen, device=DEVICE)
+    WimT = torch.randn((bank.nterms, bank.n), generator=gen, device=DEVICE)
+    full = _median_ms(torch, lambda: bank.lincomb_apply_split_t(WreT, WimT))
+    main = _median_ms(torch, lambda: bank._main_pair(WreT, WimT))
     # a step's wall without the host Ritz checks between the chunks
     step = (out["t_scan"] - out["t_check"]) / max(sum(out["k_done"]), 1) * 1e3
     ranks = [0 if L is None else L.shape[1] for L in (bank.Lr, bank.Li)]
@@ -960,6 +1146,85 @@ def phase_refine_chip(torch, gun):
                        f"backend's by rel {gap:.3e} (> 1e-9)")
 
 
+def _device_events(trace_path):
+    """The device operations (kernels, copies, memsets) of a chrome trace
+    written by ``torch.profiler``."""
+    with open(trace_path) as fh:
+        trace = json.load(fh)
+    events = trace["traceEvents"] if isinstance(trace, dict) else trace
+    return [e for e in events
+            if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+
+
+def _count_device_ops(torch, fn):
+    """``(device operations, copy and gather kernels among them)`` that
+    ``fn()`` enqueues, counted by ``torch.profiler``."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        dev = _device_events(path)
+    copies = sum(1 for e in dev if e.get("cat") == "gpu_memcpy"
+                 or re.search("copy|gather|index", e["name"], re.I))
+    return np.array([len(dev), copies])
+
+
+def phase_step_launches(torch):
+    """Device operations per complex-as-real scan step at gun_like, wep and
+    dep, and how many of them are copy or gather kernels.  Each scan runs
+    twice under ``torch.profiler`` on one prebuilt bank and factorization
+    with the same basis size (maxit 20) and stops at its first convergence
+    check, after 5 or after 15 steps (every pair counts as converged); the
+    difference over the 10 steps is the step's count (set-up and the Ritz
+    extraction cancel, every tensor has the same shape in both runs; the
+    scaled mode is the one the main path runs in)."""
+    from neptpu_torch import iar_real, nep_gallery
+    from neptpu_torch.ops.mixed import make_mixed_bank
+    from neptpu_torch.solvers.iar_real import dep_shift_block_lu
+    from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
+                                                iar_real_spmf)
+
+    def zero(lam, q):
+        return 0.0  # converged at the first check, and no residual work
+
+    def report(key, run):
+        ops = [_count_device_ops(torch, lambda: run(k))
+               for k in (5, 15, 5, 15)]
+        total, copies = (ops[1] + ops[3] - ops[0] - ops[2]) / 20
+        print(f"[step] {key}: {total:g} device operations per scan step, "
+              f"{copies:g} of them copy or gather kernels", flush=True)
+
+    common = dict(maxit=20, neigs=1, tol=1e300, dtype=torch.float32,
+                  errmeasure=zero, device=DEVICE)
+    for key, make, sigma, gamma in (
+            ("gun_like", lambda: nep_gallery("gun_like", device=DEVICE),
+             SIGMA, GAMMA),
+            ("wep", lambda: wep_nep(WEP), WEP["sigmas"][0], 1.0)):
+        nep = make()
+        kw = dict(common, sigma=sigma, gamma=gamma, scaled=True)
+        bank = make_mixed_bank(collect_spmf_terms(nep)[0], dtype=np.float32,
+                               device=DEVICE)
+        solver = iar_real_spmf(nep, bank=bank, check_error_every=5,
+                               return_info=True, return_solver=True,
+                               **kw)[2]["solver"]
+        report(key, lambda k: iar_real_spmf(
+            nep, bank=bank, lu_piv=solver, check_error_every=k, **kw))
+    nep, _, _, _ = dep_problem(DEP["nside"])
+    lu_piv = dep_shift_block_lu(nep, DEP["sigma"], dtype=torch.float32,
+                                device=DEVICE)
+    kw = dict(common, sigma=DEP["sigma"], lu_piv=lu_piv, scaled=False)
+    iar_real(nep, check_error_every=5, **kw)
+    report("dep", lambda k: iar_real(nep, check_error_every=k, **kw))
+
+
 def phase_profile(torch, trace_path, key, make_nep, sigma, gamma, maxit,
                   neigs, tol):
     """One shift's factorization and scan once more under
@@ -987,11 +1252,7 @@ def phase_profile(torch, trace_path, key, make_nep, sigma, gamma, maxit,
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     prof.export_chrome_trace(trace_path)
-    with open(trace_path) as fh:
-        trace = json.load(fh)
-    events = trace["traceEvents"] if isinstance(trace, dict) else trace
-    dev = [e for e in events
-           if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    dev = _device_events(trace_path)
     busy_us = 0.0  # union of device intervals (one stream: no overlap)
     end = -1.0
     for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
@@ -1027,6 +1288,12 @@ def main():
                     help="also profile one shift's factorization and scan of "
                          "gun_like and of wep; chrome traces go to this file "
                          "and to the same name with '.wep' before the suffix")
+    ap.add_argument("--parent", metavar="DIR", default=os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "_chip_copy", "parent"),
+                    help="an unpacked copy of the parent commit (git archive "
+                         "HEAD | tar -x -C DIR): where it is there, its "
+                         "kernel body is timed in turns beside the present "
+                         "one")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1039,8 +1306,18 @@ def main():
     t0 = time.perf_counter()
     phase_device(torch)
     phase_build(dia_kernel)
+    parent = None
+    parent_source = os.path.join(args.parent, "neptpu_torch", "csrc",
+                                 "dia_spmv.cu")
+    if os.path.exists(parent_source):
+        parent = ParentBody(torch, dia_kernel, parent_source)
+        print(f"[build] parent body {parent_source} built in "
+              f"{parent.build_seconds or 0.0:.3f} s", flush=True)
+    else:
+        print(f"[kernel] no copy of the parent commit under {args.parent}: "
+              "its kernel body is not measured in this run", flush=True)
     gun_bank = nep_gallery("gun_like", device=DEVICE).nep1.bank
-    rows = phase_kernel_checks(torch, dia_kernel, gun_bank)
+    rows = phase_kernel_checks(torch, dia_kernel, gun_bank, parent=parent)
 
     # launches by C entry point on each main path (counts set to 0 just
     # before a path is driven and read just after)
@@ -1070,6 +1347,7 @@ def main():
         phase_profile(torch, f"{stem}.wep{dot}{ext}" if dot else
                       args.profile + ".wep", "wep", lambda: wep_nep(WEP),
                       WEP["sigmas"][0], 1.0, 100, 8, 1e-5)
+        phase_step_launches(torch)
     print(f"[done] total {time.perf_counter() - t0:.3f} s", flush=True)
 
     def launches(entries, on):
@@ -1117,6 +1395,12 @@ def main():
             "max_abs_err": row["max_abs_err"], "ms": row["ms"],
             "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
+            # the same under CUDA-graph replay (n <= 1e5), and the parent
+            # commit's body timed in turns with this one (where present)
+            "graph_ms": row["graph_ms"],
+            "library_graph_ms": row["library_graph_ms"],
+            "parent_ms": row["parent_ms"],
+            "parent_graph_ms": row["parent_graph_ms"],
             "shape": f"{row['shape']} n={row['n']} m={row['m']} "
                      f"ndiag={row['ndiag']}",
             "entry_points": entries,

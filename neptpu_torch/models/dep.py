@@ -17,7 +17,7 @@ import torch
 from ..config import complex_of, real_of
 from ..ops import matfun
 from ..ops.sparse import CSR, make_term_bank
-from .spmf import AbstractSPMF
+from .spmf import AbstractSPMF, _bank_lincomb
 
 __all__ = ["DEP"]
 
@@ -121,8 +121,7 @@ class DEP(AbstractSPMF):
         lam = _host(lam)[()]
         like = torch.promote_types(V.dtype, self.bank.dtype)
         C = self._table(self._exp_coeffs(lam, k, a, startder), like)  # (m, k)
-        wdt = torch.promote_types(V.dtype, C.dtype)
-        y = self.bank.lincomb_apply(V.to(wdt) @ C.T.to(wdt))  # W (n, m)
+        y = _bank_lincomb(self.bank, V, C)
         # the -lam*I term contributes only at derivative orders 0 and 1
         if startder == 0:
             corr = [a[0] * lam] + ([a[1]] if k > 1 else [])

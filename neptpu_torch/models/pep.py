@@ -13,7 +13,7 @@ import torch
 
 from ..ops import matfun
 from ..ops.sparse import make_term_bank
-from .spmf import AbstractSPMF, _promoted_matmul
+from .spmf import AbstractSPMF, _bank_lincomb
 
 __all__ = ["PEP"]
 
@@ -85,7 +85,7 @@ class PEP(AbstractSPMF):
         if a is None:
             a = np.ones(k)
         C = self._coeffs(lam, k, np.asarray(a), startder)  # (deg+1, k)
-        return self.bank.lincomb_apply(_promoted_matmul(V, C.T))
+        return _bank_lincomb(self.bank, V, C)
 
     def MM(self, S, V):
         """``sum_d A_d V S^d`` via the power recurrence."""

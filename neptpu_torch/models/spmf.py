@@ -48,9 +48,16 @@ def _check_fv_consistency(fv):
                 "(use neptpu_torch.ops.matfun primitives).")
 
 
-def _promoted_matmul(V, D):
+def _bank_lincomb(bank, V, D):
+    """``sum_i A_i (V @ D[i])`` for the term weights ``D (m, k)``: the
+    operand formed term-major, ``D @ V^T (m, n)``, for a bank that takes it so
+    (the DIA kernel's layout, no transpose copy), else row-major
+    ``V @ D^T (n, m)`` - the same GEMM either way."""
     dt = torch.promote_types(V.dtype, D.dtype)
-    return V.to(dt) @ D.to(device=V.device, dtype=dt)
+    V, D = V.to(dt), D.to(device=V.device, dtype=dt)
+    if hasattr(bank, "lincomb_apply_t"):
+        return bank.lincomb_apply_t(D @ V.T)
+    return bank.lincomb_apply(V @ D.T)
 
 
 class AbstractSPMF(NEP):
@@ -112,7 +119,7 @@ class SPMF_NEP(AbstractSPMF):
         if a is None:
             a = torch.ones(V.shape[1], dtype=torch.float64)
         D = matfun.deriv_table(self.fv, lam, a, startder=startder)  # (m, k)
-        return self.bank.lincomb_apply(_promoted_matmul(V, D.T))
+        return _bank_lincomb(self.bank, V, D)
 
     def MM(self, S, V):
         S = S.to(torch.promote_types(S.dtype, torch.float32))

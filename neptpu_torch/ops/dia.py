@@ -5,7 +5,9 @@ Storage: shared ``offsets (ndiag,)``; stacked ``data (m_terms, ndiag, n)``
 with ``data[i, d, r] = A_i[r, r + offsets[d]]`` (zero where out of range).
 The fused multi-term apply ``y = sum_i A_i W[:, i]`` runs the hand-written
 CUDA kernel (``ops/dia_kernel.py``) on a CUDA tensor and its plain PyTorch
-twin on a CPU tensor; any other device raises.
+twin on a CPU tensor; any other device raises.  The kernel's operand is
+term-major, ``WT (m_terms, n)``: the ``*_t`` entries take it as it is, the
+row-major entries (``W (n, m_terms)``) transpose once and call them.
 """
 from __future__ import annotations
 
@@ -13,9 +15,8 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, to_numpy_dtype
-from .dia_kernel import (dia_lincomb, dia_lincomb_pair,
-                         dia_lincomb_pair_plain, dia_lincomb_plain,
-                         shifted_rows)
+from .dia_kernel import (DiaLauncher, dia_lincomb_pair_plain,
+                         dia_lincomb_plain, shifted_rows)
 
 __all__ = ["DiaTermBank"]
 
@@ -31,9 +32,7 @@ class DiaTermBank:
             fro_norms = torch.sqrt(torch.sum(torch.abs(data) ** 2, dim=(1, 2)))
         self.fro_norms = fro_norms
         self._host_data = host_data  # construction-time numpy mirror
-        # the kernel reads the offsets from a small device array
-        self.offsets_dev = torch.tensor(self.offsets, dtype=torch.int32,
-                                        device=data.device)
+        self._launchers = {}  # dtype -> the bank prepared for launching
 
     @property
     def nterms(self):
@@ -112,20 +111,22 @@ class DiaTermBank:
         return DiaTermBank(self.data.to(dtype), self.offsets, self.shape,
                            host_data=self._host_data)
 
-    def _kernel_data(self, dt):
-        """The bank's values for a kernel launch in ``dt``: the stored tensor
-        itself when the dtype matches (the scan's case — no copy per call),
-        else a converted copy."""
-        if self.data.dtype == dt:
-            return self.data  # contiguous since __init__
-        return self.data.to(dt).contiguous()
+    def launcher(self, dt):
+        """The bank prepared for kernel launches in ``dt``, built at first
+        use per dtype: the stored values themselves when the dtype matches
+        (the scan's case), else a converted copy made once."""
+        launcher = self._launchers.get(dt)
+        if launcher is None:
+            launcher = self._launchers[dt] = DiaLauncher(
+                self.data.to(dt), self.offsets)
+        return launcher
 
-    def lincomb_apply(self, W):
-        """``y = sum_i A_i @ W[:, i]``.
+    def lincomb_apply_t(self, WT):
+        """``y = sum_i A_i @ WT[i]`` for a term-major operand ``WT (m, n)``.
 
         A CPU tensor takes the plain twin; any other device launches the CUDA
         kernel (which raises on what it does not take).  The bank's data is
-        real, so a complex ``W`` is the pair apply of its re and im parts
+        real, so a complex ``WT`` is the pair apply of its re and im parts
         (one kernel launch on the card).
 
         A bfloat16 bank applied to a bfloat16 operand gives a float32 result
@@ -133,35 +134,47 @@ class DiaTermBank:
         port follows the TPU kernel (``neptpu/ops/pallas_spmv.py``), not the
         JAX package's non-Pallas path, which sums in bfloat16 and returns
         bfloat16."""
-        dt = torch.promote_types(W.dtype, self.data.dtype)
+        dt = torch.promote_types(WT.dtype, self.data.dtype)
         if dt.is_complex:
-            Wc = W.to(dt)
-            yre, yim = self.lincomb_apply_pair(Wc.real, Wc.imag)
+            Wc = WT.to(dt)
+            yre, yim = self.lincomb_apply_pair_t(Wc.real, Wc.imag)
             return torch.complex(yre, yim)
-        if W.device.type == "cpu":
-            return dia_lincomb_plain(self.data.to(dt), self.offsets, W.to(dt))
-        return dia_lincomb(self._kernel_data(dt), self.offsets_dev,
-                           W.to(dt).contiguous())
+        if WT.device.type == "cpu":
+            return dia_lincomb_plain(self.data.to(dt), self.offsets,
+                                     WT.to(dt))
+        return self.launcher(dt).single(WT.to(dt).contiguous())
 
-    def lincomb_apply_pair(self, Wre, Wim):
-        """``(sum_i A_i @ Wre[:, i], sum_i A_i @ Wim[:, i])`` for a real
-        operand pair — the re/im channels of the complex-as-real scan.  On the
-        card this is ONE kernel launch that reads the bank once; on the CPU
-        the plain twin.  bfloat16 bank and operands: float32 results, as in
-        :meth:`lincomb_apply`."""
-        dt = torch.promote_types(torch.promote_types(Wre.dtype, Wim.dtype),
-                                 self.data.dtype)
-        if dt.is_complex:
-            raise TypeError("lincomb_apply_pair takes real re/im channels, "
-                            f"got {Wre.dtype} and {Wim.dtype}")
-        if Wre.device.type == "cpu":
+    def lincomb_apply_pair_t(self, WreT, WimT):
+        """``(sum_i A_i @ WreT[i], sum_i A_i @ WimT[i])`` for a real
+        term-major operand pair - the re/im channels of the complex-as-real
+        scan, as the scan holds them.  On the card this is ONE kernel launch
+        that reads the bank once; on the CPU the plain twin.  bfloat16 bank
+        and operands: float32 results, as in :meth:`lincomb_apply_t`."""
+        dt = self.data.dtype
+        if WreT.dtype != dt or WimT.dtype != dt:
+            dt = torch.promote_types(
+                torch.promote_types(WreT.dtype, WimT.dtype), dt)
+            if dt.is_complex:
+                raise TypeError("the pair apply takes real re/im channels, "
+                                f"got {WreT.dtype} and {WimT.dtype}")
+            WreT, WimT = WreT.to(dt), WimT.to(dt)
+        if WreT.device.type == "cpu":
             return dia_lincomb_pair_plain(self.data.to(dt), self.offsets,
-                                          Wre.to(dt), Wim.to(dt))
-        return dia_lincomb_pair(self._kernel_data(dt), self.offsets_dev,
-                                Wre.to(dt).contiguous(),
-                                Wim.to(dt).contiguous())
+                                          WreT, WimT)
+        return self.launcher(dt).pair(WreT.contiguous(), WimT.contiguous())
 
     # the name the complex-as-real scans look for: one launch per step
+    lincomb_apply_split_t = lincomb_apply_pair_t
+
+    def lincomb_apply(self, W):
+        """``y = sum_i A_i @ W[:, i]`` for a row-major operand ``W (n, m)``:
+        :meth:`lincomb_apply_t` of its transpose."""
+        return self.lincomb_apply_t(W.T)
+
+    def lincomb_apply_pair(self, Wre, Wim):
+        """:meth:`lincomb_apply_pair_t` for row-major channels ``(n, m)``."""
+        return self.lincomb_apply_pair_t(Wre.T, Wim.T)
+
     lincomb_apply_split = lincomb_apply_pair
 
     def combine(self, w):

@@ -1,18 +1,30 @@
 """The stacked-DIA fused multi-term SpMV: hand-written CUDA kernel + plain twin.
 
-    y[r] = sum_d sum_i data[i, d, r] * W[r + offsets[d], i]
+    y[r] = sum_d sum_i data[i, d, r] * WT[i, r + offsets[d]]
 
-(W read as zero outside ``[0, n)``).  ``dia_lincomb`` launches the sm_90a
-kernel in ``neptpu_torch/csrc/dia_spmv.cu`` (the port of the TPU kernel
-``neptpu/ops/pallas_spmv.py``); ``dia_lincomb_pair`` applies one bank to a
+(WT read as zero outside ``[0, n)``).  The operand is **term-major**,
+``WT (m, n)`` contiguous: the layout the TPU kernel
+(``neptpu/ops/pallas_spmv.py``, ``pad_dia_operand``) takes, the one the
+complex-as-real scans hold their term weights in, and on the card the
+coalesced one.  ``dia_lincomb`` launches the sm_90a kernel in
+``neptpu_torch/csrc/dia_spmv.cu``; ``dia_lincomb_pair`` applies one bank to a
 re/im operand pair in a single launch that reads the bank once.  Both take
 float32 or float64 (result in the data type) and bfloat16 (bank and operands
-bfloat16, every product and the whole sum in float32, float32 result — the
-TPU kernel's second dtype).  ``dia_lincomb_plain`` and ``dia_lincomb_pair_plain`` are their plain PyTorch
-twins, the CPU path and the kernels' test oracle.  The kernel is compiled by
-``nvcc`` on first use into ``neptpu_torch/_build/`` (file name keyed by the
-source's content hash) and bound through ``ctypes`` with a plain C interface.
-Nothing here imports or builds anything at module import time.
+bfloat16, every product and the whole sum in float32, float32 result - the
+TPU kernel's second dtype).  ``dia_lincomb_plain`` and
+``dia_lincomb_pair_plain`` are their plain PyTorch twins, the CPU path and the
+kernels' test oracle.
+
+:class:`DiaLauncher` is a bank prepared for launching: the bank is validated
+once, its constants (data pointer, sizes, the offsets, which ride in the
+kernel's parameter block) sit ready in one C struct, and a call checks only
+its operands, allocates the result and makes one ctypes call on the current
+stream.  ``dia_lincomb`` and ``dia_lincomb_pair`` prepare a launcher per call.
+
+The kernel is compiled by ``nvcc`` on first use into ``neptpu_torch/_build/``
+(file name keyed by the source's content hash) and bound through ``ctypes``
+with a plain C interface.  Nothing here imports or builds anything at module
+import time.
 """
 from __future__ import annotations
 
@@ -28,6 +40,7 @@ import torch
 
 __all__ = [
     "DIA_SPMV",
+    "DiaLauncher",
     "result_dtype",
     "dia_lincomb",
     "dia_lincomb_pair",
@@ -85,7 +98,6 @@ class KernelLibrary:
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
-        self._fns = {}  # (entry, dtype) -> bound ctypes function
         self._lock = threading.Lock()
 
     @property
@@ -97,33 +109,33 @@ class KernelLibrary:
             for key in counts:
                 counts[key] = 0
 
-    def count(self, entry, dtype):
-        """One launch through wrapper ``entry`` with ``dtype`` data."""
-        self.counts[entry] += 1
-        self.entry_counts[f"{entry}_{_SUFFIX[dtype]}"] += 1
-
     def library_path(self):
         with open(self.source, "rb") as fh:
             digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())
         return os.path.join(BUILD_DIR,
                             f"lib{self.name}_{digest.hexdigest()[:16]}.so")
 
+    def build(self):
+        """The path of the shared library, built first where it is not
+        there yet."""
+        path = self.library_path()
+        if not os.path.exists(path):
+            self._build(path)
+        return path
+
     def load(self):
         with self._lock:
             if self._lib is not None:
                 return self._lib
-            path = self.library_path()
-            if not os.path.exists(path):
-                self._build(path)
-            lib = ctypes.CDLL(path)
-            ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib = ctypes.CDLL(self.build())
+            ptr, i32 = ctypes.c_void_p, ctypes.c_int
+            bank = ctypes.POINTER(BankStruct)
             for sfx in _SUFFIX.values():
                 fn = getattr(lib, f"dia_lincomb_{sfx}")
-                fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+                fn.argtypes = [bank, ptr, ptr, ptr]
                 fn.restype = i32
                 fn = getattr(lib, f"dia_lincomb_pair_{sfx}")
-                fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32,
-                               ptr]
+                fn.argtypes = [bank, ptr, ptr, ptr, ptr, ptr]
                 fn.restype = i32
             lib.dia_noop.argtypes = [ptr]
             lib.dia_noop.restype = i32
@@ -131,15 +143,6 @@ class KernelLibrary:
             lib.dia_error_string.restype = ctypes.c_char_p
             self._lib = lib
             return lib
-
-    def function(self, entry, dtype):
-        """The bound C entry point ``<entry>_f32``/``_f64``/``_bf16``, looked
-        up once per dtype."""
-        fn = self._fns.get((entry, dtype))
-        if fn is None:
-            fn = getattr(self.load(), f"{entry}_{_SUFFIX[dtype]}")
-            self._fns[(entry, dtype)] = fn
-        return fn
 
     def check(self, rc, what):
         """Raise on a non-zero ``cudaGetLastError()`` of a launch."""
@@ -173,85 +176,174 @@ def build_kernel():
     return DIA_SPMV.load()
 
 
-def _check_operands(what, data, offsets_dev, operands):
-    """Raise on anything the kernels do not take; returns ``(m, ndiag, n)``.
-    ``operands``: ``(name, tensor)`` pairs, each an ``(n, m)`` operand."""
-    dev, dt = data.device, data.dtype
-    for name, t in (("data", data), ("offsets", offsets_dev)) + operands:
-        if t.device != dev or dev.type != "cuda":
-            if t.device.type != "cuda":
-                raise ValueError(f"{what} kernel needs CUDA tensors; {name} "
-                                 f"is on {t.device}")
-            raise ValueError(f"{what}: data, offsets and operands on "
-                             "different devices")
-        if not t.is_contiguous():
-            raise ValueError(f"{what} kernel needs contiguous {name}")
-    if dt not in _SUFFIX or offsets_dev.dtype != torch.int32:
-        raise TypeError(f"{what} kernel takes float32, float64 or bfloat16 "
-                        f"data with int32 offsets, got {dt} and "
-                        f"{offsets_dev.dtype}")
-    if data.ndim != 3 or offsets_dev.ndim != 1:
-        raise ValueError(f"{what}: data (m, ndiag, n), offsets (ndiag,)")
-    m, ndiag, n = data.shape
-    if offsets_dev.shape[0] != ndiag:
-        raise ValueError(f"{what}: {offsets_dev.shape[0]} offsets for "
-                         f"{ndiag} diagonals")
-    for name, W in operands:
-        if W.dtype != dt:
-            raise TypeError(f"{what} kernel takes data and operands of one "
-                            f"dtype, got {dt} and {W.dtype} ({name})")
-        if W.shape != (n, m):
-            raise ValueError(f"{what}: {name} has shape {tuple(W.shape)}, "
-                             f"data {tuple(data.shape)} needs ({n}, {m})")
-    return m, ndiag, n
+# offsets up to this many ride in the kernel's parameter block (the C
+# struct's capacity); a wider bank passes them as a device array
+MAX_BY_VALUE = 256
+# the rows per thread the library is built for: packed loads (8 bfloat16 =
+# 16 bytes of bank a load) where n is a multiple of the width; float32 and
+# float64 gained nothing from packed rows on the H100 and have none.  The C
+# side falls back to one row per thread on an operand that is not 16-byte
+# aligned.
+ROWS_BUILT = {torch.float32: (1,), torch.float64: (1,),
+              torch.bfloat16: (1, 8)}
+# below this many rows one row per thread, so the grid covers the card's SMs
+# (packed rows were slower at n = 1e4: 5.6-6.6 us against 2.3 us)
+WIDE_MIN_ROWS = 1 << 17
 
 
-def _on_stream(device, call):
-    """``call(raw_stream)`` with ``device`` current, on its current stream;
-    the current device is switched only when it is another one."""
-    if device.index is None or device.index == torch.cuda.current_device():
-        return call(torch.cuda.current_stream(device).cuda_stream)
-    with torch.cuda.device(device):
-        return call(torch.cuda.current_stream(device).cuda_stream)
+class BankStruct(ctypes.Structure):
+    """``DiaBank`` of ``csrc/dia_spmv.cu``: what a launch needs of a bank."""
+
+    _fields_ = [("data", ctypes.c_void_p),
+                ("offsets_dev", ctypes.c_void_p),
+                ("n", ctypes.c_longlong),
+                ("m", ctypes.c_int),
+                ("ndiag", ctypes.c_int),
+                ("vec", ctypes.c_int),
+                ("offsets", ctypes.c_int * MAX_BY_VALUE)]
 
 
-def dia_lincomb(data, offsets_dev, W):
-    """Launch the CUDA kernel: ``data (m, ndiag, n)``, ``offsets_dev (ndiag,)``
-    int32, ``W (n, m)``, all contiguous on one CUDA device, float32, float64
-    or bfloat16 (data and operand of one dtype).  Returns ``y (n,)`` in the
-    data dtype, float32 for bfloat16 (products and sum in float32).  Raises
-    on anything the kernel does not take — there is no fallback to the plain
-    twin."""
-    m, ndiag, n = _check_operands("dia_lincomb", data, offsets_dev,
-                                  (("W", W),))
-    fn = DIA_SPMV.function("dia_lincomb", data.dtype)
-    y = torch.empty(n, dtype=result_dtype(data.dtype), device=data.device)
-    rc = _on_stream(data.device, lambda stream: fn(
-        data.data_ptr(), offsets_dev.data_ptr(), W.data_ptr(), y.data_ptr(),
-        n, m, ndiag, stream))
-    DIA_SPMV.check(rc, "dia_lincomb")
-    DIA_SPMV.count("dia_lincomb", data.dtype)
-    return y
+def rows_per_thread(dtype, n):
+    """Rows a thread owns in an ``n``-row bank: the dtype's packed width
+    where there are rows enough to fill the card with packed loads and ``n``
+    keeps every bank row aligned, else 1."""
+    wide = ROWS_BUILT[dtype][-1]
+    return wide if n >= WIDE_MIN_ROWS and n % wide == 0 else 1
 
 
-def dia_lincomb_pair(data, offsets_dev, Wre, Wim):
+def _raw_stream(index):
+    """The current stream of device ``index`` as the integer the C side
+    takes, without building a ``Stream`` object where this PyTorch can."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+class DiaLauncher:
+    """One bank (``data (m, ndiag, n)`` contiguous, float32, float64 or
+    bfloat16; ``offsets`` a sequence of ``ndiag`` ints) prepared for
+    launching the kernels of ``DIA_SPMV``.
+
+    Construction validates the bank and fills the C struct; it neither
+    builds nor loads the library (the first launch does).  ``single`` and
+    ``pair`` check their operands - dtype of the bank, shape ``(m, n)``,
+    contiguous, on the bank's CUDA device - and raise on anything else:
+    there is no fallback to the plain twin.  They launch on the current
+    stream, do not synchronise and read nothing back, so they can be
+    captured into a CUDA graph."""
+
+    def __init__(self, data, offsets):
+        offsets = tuple(int(o) for o in offsets)
+        if data.dtype not in _SUFFIX:
+            raise TypeError("the DIA kernels take float32, float64 or "
+                            f"bfloat16 data, got {data.dtype}")
+        if data.ndim != 3:
+            raise ValueError("the DIA kernels take data (m, ndiag, n), got "
+                             f"shape {tuple(data.shape)}")
+        if not data.is_contiguous():
+            raise ValueError("the DIA kernels need contiguous data")
+        m, ndiag, n = data.shape
+        if len(offsets) != ndiag:
+            raise ValueError(f"{len(offsets)} offsets for {ndiag} diagonals")
+        if any(abs(o) >= 2**31 for o in offsets):
+            raise ValueError("offsets must fit in 32 bits")
+        self.data = data  # kept alive: the struct holds its pointer
+        self.offsets = offsets
+        self.dtype, self.device = data.dtype, data.device
+        self.result_dtype = result_dtype(data.dtype)
+        self.m, self.ndiag, self.n = m, ndiag, n
+        self._shape = (m, n)
+        self._on_cuda = data.device.type == "cuda"
+        self._index = data.device.index
+        self._row_bytes = n * (4 if data.dtype == torch.bfloat16
+                               else data.element_size())
+        self._offsets_dev = None
+        bank = BankStruct()
+        if self._on_cuda:
+            bank.data = data.data_ptr()
+            if ndiag > MAX_BY_VALUE:
+                self._offsets_dev = torch.tensor(offsets, dtype=torch.int32,
+                                                 device=data.device)
+                bank.offsets_dev = self._offsets_dev.data_ptr()
+        bank.n, bank.m, bank.ndiag = n, m, ndiag
+        for d, o in enumerate(offsets[:MAX_BY_VALUE]):
+            bank.offsets[d] = o
+        self._bank = bank
+        self._ref = ctypes.byref(bank)
+        self.vec = bank.vec = rows_per_thread(data.dtype, n)
+        sfx = _SUFFIX[data.dtype]
+        self._entries = {"dia_lincomb": f"dia_lincomb_{sfx}",
+                         "dia_lincomb_pair": f"dia_lincomb_pair_{sfx}"}
+        self._fns = {}
+
+    def _check(self, W, name):
+        if W.dtype != self.dtype:
+            raise TypeError("the DIA kernels take data and operands of one "
+                            f"dtype, got {self.dtype} and {W.dtype} ({name})")
+        if W.shape != self._shape:
+            raise ValueError(f"{name} has shape {tuple(W.shape)}, data "
+                             f"{tuple(self.data.shape)} needs the term-major "
+                             f"{self._shape}")
+        if not W.is_contiguous():
+            raise ValueError(f"the DIA kernels need contiguous {name}")
+        if not self._on_cuda or W.device != self.device:
+            if W.device.type != "cuda" or not self._on_cuda:
+                raise ValueError("the DIA kernels need CUDA tensors; data is "
+                                 f"on {self.device}, {name} on {W.device}")
+            raise ValueError("data and operands on different devices")
+
+    def _launch(self, entry, *pointers):
+        fn = self._fns.get(entry)
+        if fn is None:
+            fn = self._fns[entry] = getattr(DIA_SPMV.load(),
+                                            self._entries[entry])
+        if self._index == torch.cuda.current_device():
+            rc = fn(self._ref, *pointers, _raw_stream(self._index))
+        else:
+            with torch.cuda.device(self._index):
+                rc = fn(self._ref, *pointers, _raw_stream(self._index))
+        if rc:
+            DIA_SPMV.check(rc, entry)
+        DIA_SPMV.counts[entry] += 1
+        DIA_SPMV.entry_counts[self._entries[entry]] += 1
+
+    def single(self, WT):
+        """``y (n,)`` for one term-major operand ``WT (m, n)``."""
+        self._check(WT, "WT")
+        y = torch.empty(self.n, dtype=self.result_dtype, device=self.device)
+        self._launch("dia_lincomb", WT.data_ptr(), y.data_ptr())
+        return y
+
+    def pair(self, WreT, WimT):
+        """``(yre, yim)`` for an operand pair in one launch, the bank read
+        once; equal to two ``single`` launches bit for bit."""
+        self._check(WreT, "WreT")
+        self._check(WimT, "WimT")
+        y = torch.empty((2, self.n), dtype=self.result_dtype,
+                        device=self.device)
+        p = y.data_ptr()
+        self._launch("dia_lincomb_pair", WreT.data_ptr(), WimT.data_ptr(), p,
+                     p + self._row_bytes)
+        return y.unbind(0)
+
+
+def dia_lincomb(data, offsets, WT):
+    """Launch the CUDA kernel: ``data (m, ndiag, n)``, ``offsets`` a sequence
+    of ``ndiag`` ints, ``WT (m, n)`` term-major, data and operand contiguous
+    on one CUDA device and of one dtype (float32, float64 or bfloat16).
+    Returns ``y (n,)`` in the data dtype, float32 for bfloat16 (products and
+    sum in float32).  Raises on anything the kernel does not take - there is
+    no fallback to the plain twin."""
+    return DiaLauncher(data, offsets).single(WT)
+
+
+def dia_lincomb_pair(data, offsets, WreT, WimT):
     """One launch for an operand pair: ``(yre, yim)`` with ``yre`` the fused
-    apply of the bank to ``Wre`` and ``yim`` to ``Wim`` (both ``(n, m)``), the
-    bank read once.  Same contract and refusals as :func:`dia_lincomb`; the
-    results equal two single launches bit for bit."""
-    m, ndiag, n = _check_operands("dia_lincomb_pair", data, offsets_dev,
-                                  (("Wre", Wre), ("Wim", Wim)))
-    fn = DIA_SPMV.function("dia_lincomb_pair", data.dtype)
-    y = torch.empty((2, n), dtype=result_dtype(data.dtype),
-                    device=data.device)
-    yre_ptr = y.data_ptr()
-    rc = _on_stream(data.device, lambda stream: fn(
-        data.data_ptr(), offsets_dev.data_ptr(), Wre.data_ptr(),
-        Wim.data_ptr(), yre_ptr, yre_ptr + n * y.element_size(), n, m, ndiag,
-        stream))
-    DIA_SPMV.check(rc, "dia_lincomb_pair")
-    DIA_SPMV.count("dia_lincomb_pair", data.dtype)
-    return y[0], y[1]
+    apply of the bank to ``WreT`` and ``yim`` to ``WimT`` (both ``(m, n)``),
+    the bank read once.  Same contract and refusals as :func:`dia_lincomb`;
+    the results equal two single launches bit for bit."""
+    return DiaLauncher(data, offsets).pair(WreT, WimT)
 
 
 def empty_launch(device):
@@ -260,13 +352,19 @@ def empty_launch(device):
     device = torch.device(device)
     if device.type != "cuda":
         raise ValueError(f"empty_launch needs a CUDA device, got {device}")
-    DIA_SPMV.check(_on_stream(device, DIA_SPMV.load().dia_noop), "dia_noop")
+    index = (torch.cuda.current_device() if device.index is None
+             else device.index)
+    with torch.cuda.device(index):
+        DIA_SPMV.check(DIA_SPMV.load().dia_noop(_raw_stream(index)),
+                       "dia_noop")
 
 
 def shifted_rows(X, off):
     """Rows r of the result = X[r + off], zero where r + off is outside."""
     if off == 0:
         return X
+    if abs(off) >= X.shape[0]:
+        return torch.zeros_like(X)
     z = torch.zeros((abs(off),) + tuple(X.shape[1:]), dtype=X.dtype,
                     device=X.device)
     if off > 0:
@@ -274,34 +372,35 @@ def shifted_rows(X, off):
     return torch.cat([z, X[:off]], dim=0)
 
 
-def dia_lincomb_plain(data, offsets, W):
-    """Plain PyTorch twin of :func:`dia_lincomb` (offsets a tuple of ints).
+def dia_lincomb_plain(data, offsets, WT):
+    """Plain PyTorch twin of :func:`dia_lincomb`: ``data (m, ndiag, n)``,
+    ``offsets`` a sequence of ints, ``WT (m, n)`` term-major.
 
     Mirrors both branches of ``neptpu.ops.dia.DiaTermBank.lincomb_apply``:
-    unrolled shifted FMAs for stencil-like banks (<= 16 offsets), one padded
-    gather + einsum for wide banks.  bfloat16 inputs are widened to float32
-    first, as the kernel widens them: float32 products and sums, float32
-    result."""
+    one shifted product summed over the terms per diagonal for stencil-like
+    banks (<= 16 offsets), one padded gather and one reduction for wide
+    banks.  bfloat16 inputs are widened to float32 first, as the kernel
+    widens them: float32 products and sums, float32 result."""
     if data.dtype == torch.bfloat16:
-        data, W = data.to(torch.float32), W.to(torch.float32)
-    n = data.shape[2]
+        data, WT = data.to(torch.float32), WT.to(torch.float32)
+    m, _, n = data.shape
     if len(offsets) <= 16:
-        y = torch.zeros(n, dtype=W.dtype, device=W.device)
+        W = WT.T  # (n, m) view: rows shift
+        y = torch.zeros(n, dtype=WT.dtype, device=WT.device)
         for d, off in enumerate(offsets):
-            y = y + torch.sum(data[:, d, :].T * shifted_rows(W, off), dim=1)
+            y = y + torch.sum(data[:, d, :] * shifted_rows(W, off).T, dim=0)
         return y
     offs = np.asarray(offsets)
     lo = int(max(-offs.min(), 0))
     hi = int(max(offs.max(), 0))
-    Wp = torch.zeros((n + lo + hi, W.shape[1]), dtype=W.dtype, device=W.device)
-    Wp[lo:lo + n] = W
-    idx = (torch.arange(n, device=W.device)[:, None]
-           + torch.as_tensor(offs + lo, device=W.device)[None, :])
-    G = Wp[idx]  # (n, ndiag, m)
-    return torch.einsum("idr,rdi->r", data, G)
+    Wp = torch.zeros((m, n + lo + hi), dtype=WT.dtype, device=WT.device)
+    Wp[:, lo:lo + n] = WT
+    idx = (torch.arange(n, device=WT.device)[None, :]
+           + torch.as_tensor(offs + lo, device=WT.device)[:, None])
+    return torch.sum(data * Wp[:, idx], dim=(0, 1))  # gather (m, ndiag, n)
 
 
-def dia_lincomb_pair_plain(data, offsets, Wre, Wim):
+def dia_lincomb_pair_plain(data, offsets, WreT, WimT):
     """Plain PyTorch twin of :func:`dia_lincomb_pair`: two plain applies."""
-    return (dia_lincomb_plain(data, offsets, Wre),
-            dia_lincomb_plain(data, offsets, Wim))
+    return (dia_lincomb_plain(data, offsets, WreT),
+            dia_lincomb_plain(data, offsets, WimT))

@@ -1,8 +1,8 @@
 """Small dense (generalized) eigen and Schur solves.
 
 These are k x k with k up to a few hundred and sit off the hot path (Ritz
-extraction, projected problems, matrix square roots).  ``eig``, ``eigvals``
-and ``geig`` run through ``torch.linalg`` on the device of their argument;
+extraction, projected problems, matrix square roots).  ``eig`` and ``eigvals``
+run through ``torch.linalg`` on the device of their argument; ``geig``,
 ``schur``, ``ordschur_inside`` and ``qz`` have no torch counterpart and run on
 the host through scipy, the result going back to the argument's device.  All
 results are complex128.
@@ -42,10 +42,13 @@ def eigvals(A):
 
 
 def geig(A, B):
-    """Generalized eigenproblem A x = lam B x: returns (w, V), through
-    ``B^{-1} A`` (B must be invertible)."""
-    A, B = _c128(A), _c128(B)
-    return torch.linalg.eig(torch.linalg.solve(B, A))
+    """Generalized eigenproblem A x = lam B x: returns (w, V).  LAPACK's QZ
+    on the host, so a singular B gives infinite eigenvalues (``inf`` or
+    ``nan`` entries of w) instead of failing."""
+    import scipy.linalg as sla
+
+    w, V = sla.eig(_host(A), _host(B))
+    return _back(A, w, V)
 
 
 def schur(A):

@@ -29,7 +29,9 @@ class MixedTermBank:
     ``(Li, Ui, tidx_i)``, term j's real part being ``Lr[:, sel] Ur[:, sel]^T``
     over the ranks ``sel`` with ``tidx_r == j``.  ``lincomb_apply(W)``
     computes ``sum_i A_i W[:, i]`` in the ORIGINAL term order;
-    ``lincomb_apply_split`` is the re/im pair form used by the scan."""
+    ``lincomb_apply_split_t`` is the re/im pair form used by the scan, on
+    term-major channels ``(nterms, n)`` as the scan holds them, and
+    ``lincomb_apply_split`` the same for row-major ``(n, nterms)``."""
 
     is_sparse = True
 
@@ -45,9 +47,15 @@ class MixedTermBank:
         self._nterms = int(nterms)
         self.fro_norms = fro_norms
         dev = self.device
-        # column selections as device index tensors, built once
-        self._sel = torch.tensor(self.main_idx, dtype=torch.int64, device=dev)
-        self._identity = self.main_idx == tuple(range(self._nterms))
+        # term selections, built once: the main terms as a slice where they
+        # are consecutive (a view of a term-major operand, no gather launch),
+        # else as a device index tensor
+        lo = self.main_idx[0]
+        if self.main_idx == tuple(range(lo, lo + len(self.main_idx))):
+            self._sel = slice(lo, lo + len(self.main_idx))
+        else:
+            self._sel = torch.tensor(self.main_idx, dtype=torch.int64,
+                                     device=dev)
         self._tr = torch.tensor(self.tidx_r, dtype=torch.int64, device=dev)
         self._ti = torch.tensor(self.tidx_i, dtype=torch.int64, device=dev)
 
@@ -68,34 +76,36 @@ class MixedTermBank:
         return self.inner.device
 
     @staticmethod
-    def _group_apply(L, U, tidx, W):
-        """``L @ u`` with ``u_r = sum_n U[n, r] W[n, tidx[r]]``."""
-        return L @ torch.sum(U * W[:, tidx], dim=0)
+    def _group_apply(L, U, tidx, WT):
+        """``L @ u`` with ``u_r = sum_n U[n, r] WT[tidx[r], n]``; the gather
+        goes through the row-major view, so its result lies as ``U`` does."""
+        return L @ torch.sum(U * WT.T[:, tidx], dim=0)
 
-    def _main(self, W):
-        if not self._identity:
-            W = W[:, self._sel]
-        return self.inner.lincomb_apply(W)
+    def _main_pair(self, WreT, WimT):
+        """The main bank applied to both term-major channels: one pair
+        launch on a DIA bank, two applies on a CSR or dense one."""
+        WreT, WimT = WreT[self._sel], WimT[self._sel]
+        if hasattr(self.inner, "lincomb_apply_pair_t"):
+            return self.inner.lincomb_apply_pair_t(WreT, WimT)
+        return self.inner.lincomb_apply(WreT.T), self.inner.lincomb_apply(
+            WimT.T)
 
-    def _main_pair(self, Wre, Wim):
-        """The main bank applied to both channels: one pair launch on a DIA
-        bank, two applies on a CSR or dense one."""
-        if not self._identity:
-            Wre, Wim = Wre[:, self._sel], Wim[:, self._sel]
-        if hasattr(self.inner, "lincomb_apply_pair"):
-            return self.inner.lincomb_apply_pair(Wre, Wim)
-        return self.inner.lincomb_apply(Wre), self.inner.lincomb_apply(Wim)
+    def lincomb_apply_split_t(self, WreT, WimT):
+        """(yre, yim) = re/im of ``sum_i A_i (WreT + i WimT)[i]`` for
+        term-major channels ``(nterms, n)``."""
+        yre, yim = self._main_pair(WreT, WimT)
+        if self.Lr is not None:
+            yre = yre + self._group_apply(self.Lr, self.Ur, self._tr, WreT)
+            yim = yim + self._group_apply(self.Lr, self.Ur, self._tr, WimT)
+        if self.Li is not None:
+            yre = yre - self._group_apply(self.Li, self.Ui, self._ti, WimT)
+            yim = yim + self._group_apply(self.Li, self.Ui, self._ti, WreT)
+        return yre, yim
 
     def lincomb_apply_split(self, Wre, Wim):
-        """(yre, yim) = re/im of ``sum_i A_i (Wre + i Wim)[:, i]``."""
-        yre, yim = self._main_pair(Wre, Wim)
-        if self.Lr is not None:
-            yre = yre + self._group_apply(self.Lr, self.Ur, self._tr, Wre)
-            yim = yim + self._group_apply(self.Lr, self.Ur, self._tr, Wim)
-        if self.Li is not None:
-            yre = yre - self._group_apply(self.Li, self.Ui, self._ti, Wim)
-            yim = yim + self._group_apply(self.Li, self.Ui, self._ti, Wre)
-        return yre, yim
+        """:meth:`lincomb_apply_split_t` for row-major channels
+        ``(n, nterms)``."""
+        return self.lincomb_apply_split_t(Wre.T, Wim.T)
 
     def lincomb_apply(self, W):
         """``y = sum_i A_i W[:, i]`` (original term order; complex aware)."""
@@ -104,9 +114,9 @@ class MixedTermBank:
             Wim = W.imag if W.is_complex() else torch.zeros_like(W)
             yre, yim = self.lincomb_apply_split(Wre, Wim)
             return torch.complex(yre, yim)
-        y = self._main(W)
+        y = self.inner.lincomb_apply(W[:, self._sel])
         if self.Lr is not None:
-            y = y + self._group_apply(self.Lr, self.Ur, self._tr, W)
+            y = y + self._group_apply(self.Lr, self.Ur, self._tr, W.T)
         return y
 
     def host_csr_terms(self):

@@ -163,8 +163,8 @@ def _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled, inv_theta):
     # term weights: W = Y @ C^T, complex split into four small GEMMs
     WreT = Cre @ ytre - Cim @ ytim  # (terms, n)
     WimT = Cre @ ytim + Cim @ ytre
-    if hasattr(bank, "lincomb_apply_split"):
-        zre, zim = bank.lincomb_apply_split(WreT.T, WimT.T)
+    if hasattr(bank, "lincomb_apply_split_t"):
+        zre, zim = bank.lincomb_apply_split_t(WreT, WimT)  # as held
     else:
         zre = bank.lincomb_apply(WreT.T)
         zim = bank.lincomb_apply(WimT.T)

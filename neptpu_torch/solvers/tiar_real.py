@@ -65,8 +65,8 @@ def _tiar_step(carry, k, bank, m, Cre, Cim, gre, gim, solver):
     # ---- Mlincomb via coefficient table + fused bank apply ----------------
     WreT = Cre @ yre.T - Cim @ yim.T  # (terms, n)
     WimT = Cre @ yim.T + Cim @ yre.T
-    if hasattr(bank, "lincomb_apply_split"):
-        zre, zim = bank.lincomb_apply_split(WreT.T, WimT.T)
+    if hasattr(bank, "lincomb_apply_split_t"):
+        zre, zim = bank.lincomb_apply_split_t(WreT, WimT)  # as held
     else:
         zre = bank.lincomb_apply(WreT.T)
         zim = bank.lincomb_apply(WimT.T)

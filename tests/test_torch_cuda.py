@@ -79,16 +79,21 @@ def test_pair_kernel_matches_twin_and_two_singles(cuda, dtype, rtol):
     assert dia_kernel.DIA_SPMV.counts["dia_lincomb"] == before["dia_lincomb"]
     assert torch.equal(yre, tb.lincomb_apply(Wre))
     assert torch.equal(yim, tb.lincomb_apply(Wim))
-    pre, pim = dia_kernel.dia_lincomb_pair_plain(tb.data, tb.offsets, Wre,
-                                                 Wim)
+    WreT, WimT = Wre.T.contiguous(), Wim.T.contiguous()
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(tb.data, tb.offsets, WreT,
+                                                 WimT)
     assert rel_err(yre.cpu().numpy(), pre.cpu().numpy()) < rtol
     assert rel_err(yim.cpu().numpy(), pim.cpu().numpy()) < rtol
+    # the term-major entries are the same launch
+    tre, tim = tb.lincomb_apply_pair_t(WreT, WimT)
+    assert torch.equal(tre, yre) and torch.equal(tim, yim)
     with pytest.raises(TypeError):
-        dia_kernel.dia_lincomb_pair(tb.data, tb.offsets_dev, Wre,
-                                    Wim.to(torch.float16))
+        dia_kernel.dia_lincomb_pair(tb.data, tb.offsets, WreT,
+                                    WimT.to(torch.float16))
     with pytest.raises(ValueError, match="contiguous"):
-        dia_kernel.dia_lincomb_pair(tb.data, tb.offsets_dev, Wre,
-                                    Wim.T.contiguous().T)
+        dia_kernel.dia_lincomb_pair(tb.data, tb.offsets, WreT, Wim.T)
+    with pytest.raises(ValueError, match="term-major"):
+        dia_kernel.dia_lincomb_pair(tb.data, tb.offsets, WreT, Wim)
 
 
 @pytest.mark.cuda
@@ -119,21 +124,23 @@ def test_kernel_wrapper_rejects_bf16_and_strided(cuda):
     """bfloat16 is taken when data and operands share it (mixed dtypes and
     float16 are refused); a strided operand is refused in every dtype."""
     data = torch.zeros((2, 3, 10), dtype=torch.bfloat16, device=cuda)
-    offs = torch.zeros(3, dtype=torch.int32, device=cuda)
+    offs = (-1, 0, 1)
     y = dia_kernel.dia_lincomb(data, offs, torch.zeros(
-        (10, 2), dtype=torch.bfloat16, device=cuda))
+        (2, 10), dtype=torch.bfloat16, device=cuda))
     assert y.dtype == torch.float32 and y.shape == (10,)
     with pytest.raises(TypeError):
-        dia_kernel.dia_lincomb(data, offs, torch.zeros((10, 2), device=cuda))
+        dia_kernel.dia_lincomb(data, offs, torch.zeros((2, 10), device=cuda))
     with pytest.raises(TypeError):
         dia_kernel.dia_lincomb(data.to(torch.float16), offs, torch.zeros(
-            (10, 2), dtype=torch.float16, device=cuda))
+            (2, 10), dtype=torch.float16, device=cuda))
     with pytest.raises(ValueError, match="contiguous"):
         dia_kernel.dia_lincomb(data, offs, torch.zeros(
-            (2, 10), dtype=torch.bfloat16, device=cuda).T)
+            (10, 2), dtype=torch.bfloat16, device=cuda).T)
     data = torch.zeros((2, 3, 10), device=cuda)
     with pytest.raises(ValueError, match="contiguous"):
-        dia_kernel.dia_lincomb(data, offs, torch.zeros((2, 10), device=cuda).T)
+        dia_kernel.dia_lincomb(data, offs, torch.zeros((10, 2), device=cuda).T)
+    with pytest.raises(ValueError, match="CUDA"):
+        dia_kernel.dia_lincomb(data, offs, torch.zeros((2, 10)))
 
 
 # the delay problem's bank shape (dep_symm_double: 2 terms, nine offsets)
@@ -165,8 +172,8 @@ def test_bf16_kernels_match_their_twins(cuda, offs, n, m):
         before["dia_lincomb_pair_bf16"] + 1)
     assert y.dtype == yre.dtype == yim.dtype == torch.float32
     assert torch.equal(y, yre) and torch.equal(yim, tb.lincomb_apply(Wim))
-    pre, pim = dia_kernel.dia_lincomb_pair_plain(tb.data, tb.offsets, Wre,
-                                                 Wim)
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(
+        tb.data, tb.offsets, Wre.T.contiguous(), Wim.T.contiguous())
     assert pre.dtype == torch.float32
     assert rel_err(yre.cpu().numpy(), pre.cpu().numpy()) < 1e-5
     assert rel_err(yim.cpu().numpy(), pim.cpu().numpy()) < 1e-5
@@ -187,10 +194,118 @@ def test_kernels_at_the_dep_shape(cuda, dtype, rtol):
     Wim = torch.from_numpy(rng.standard_normal((10_000, 2))).to(cuda, dtype)
     yre, yim = tb.lincomb_apply_split(Wre, Wim)
     assert torch.equal(yre, tb.lincomb_apply(Wre))
-    pre, pim = dia_kernel.dia_lincomb_pair_plain(tb.data, tb.offsets, Wre,
-                                                 Wim)
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(
+        tb.data, tb.offsets, Wre.T.contiguous(), Wim.T.contiguous())
     assert rel_err(yre.cpu().numpy(), pre.cpu().numpy()) < rtol
     assert rel_err(yim.cpu().numpy(), pim.cpu().numpy()) < rtol
+
+
+# narrow and generic body, offsets by value and from a device array, one row
+# per thread and (bfloat16, n >= 2^17 a multiple of 8) packed rows: within a
+# few roundings of the twin, the pair equal to two singles, and the same bits
+# with one row per thread as with packed rows (each row is summed in one fixed
+# order) - an operand that is not 16-byte aligned takes one row per thread
+PACKED_N = (1 << 17) + 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12),
+                                        (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("offs,n,m", [
+    ([-37, -36, -3, -2, -1, 0, 1, 2, 4, 7, 36, 38], 37, 3),
+    (DEP_OFFS, 10_000, 2), ([-26, -25, -1, 0, 1, 25, 26], 4096, 4),
+    ([-2, 0, 3], 1000, 1), (list(range(-12, 13)), 704, 3),
+    (list(range(-150, 150)), 640, 2), ([-5, -1, 0, 1, 6], 808, 5),
+    ([-PACKED_N, -363, -362, -8, -3, -1, 0, 1, 2, 5, 16, 361, PACKED_N - 1],
+     PACKED_N, 4),
+    (DEP_OFFS, PACKED_N, 2), (DEP_OFFS, PACKED_N + 4, 3)])
+def test_term_major_kernels_narrow_generic_and_packed(cuda, dtype, rtol, offs,
+                                                      n, m):
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    data = torch.randn((m, len(offs), n), generator=gen, device=cuda).to(dtype)
+    WreT = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    WimT = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    launcher = dia_kernel.DiaLauncher(data, offs)
+    assert launcher.vec == (8 if dtype == torch.bfloat16 and n == PACKED_N
+                            else 1)
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(data, offs, WreT, WimT)
+    before = dia_kernel.DIA_SPMV.launches
+    y = launcher.single(WreT)
+    yre, yim = launcher.pair(WreT, WimT)
+    torch.cuda.synchronize()
+    assert dia_kernel.DIA_SPMV.launches == before + 2
+    assert y.dtype == dia_kernel.result_dtype(dtype)
+    assert torch.equal(y, yre)
+    assert torch.equal(yim, launcher.single(WimT))
+    for got, ref in ((yre, pre), (yim, pim)):
+        assert float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
+    if launcher.vec > 1:
+        shifted = []
+        for WT in (WreT, WimT):
+            big = torch.zeros(m * n + 1, dtype=dtype, device=cuda)
+            shifted.append(big[1:].view(m, n))
+            shifted[-1].copy_(WT)
+        assert torch.equal(launcher.single(shifted[0]), yre)
+        y1re, y1im = launcher.pair(*shifted)
+        assert torch.equal(y1re, yre) and torch.equal(y1im, yim)
+
+
+# the wrappers launch on the current stream, do not synchronise and read
+# nothing back: ten pair launches captured into a CUDA graph replay to the
+# eager result, and each captured launch is counted once
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_pair_launches_capture_into_a_cuda_graph(cuda, dtype):
+    tb = DiaTermBank.from_matrices(_mats(DEP_OFFS, 10_000, 2),
+                                   dtype=np.float32, device=cuda).astype(dtype)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    WreT = torch.randn((2, 10_000), generator=gen, device=cuda).to(dtype)
+    WimT = torch.randn((2, 10_000), generator=gen, device=cuda).to(dtype)
+    eager = tb.lincomb_apply_pair_t(WreT, WimT)
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tb.lincomb_apply_pair_t(WreT, WimT)
+    torch.cuda.current_stream().wait_stream(side)
+    before = dict(dia_kernel.DIA_SPMV.counts)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [tb.lincomb_apply_pair_t(WreT, WimT) for _ in range(10)]
+    assert dia_kernel.DIA_SPMV.counts["dia_lincomb_pair"] == (
+        before["dia_lincomb_pair"] + 10)
+    assert dia_kernel.DIA_SPMV.counts["dia_lincomb"] == before["dia_lincomb"]
+    for _ in range(2):
+        for yre, yim in outs:
+            yre.zero_()
+            yim.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        for yre, yim in outs:
+            assert torch.equal(yre, eager[0]) and torch.equal(yim, eager[1])
+
+
+# the scan hands the bank its (terms, n) weights as it holds them: no copy
+# or gather kernel for the operand of the pair launch
+@pytest.mark.cuda
+def test_scan_operand_reaches_the_kernel_without_a_copy(cuda):
+    from torch.profiler import ProfilerActivity, profile
+
+    tb = DiaTermBank.from_matrices(_mats(DEP_OFFS, 10_000, 2),
+                                   dtype=np.float32, device=cuda)
+    WreT = torch.randn((2, 10_000), device=cuda)
+    WimT = torch.randn((2, 10_000), device=cuda)
+    tb.lincomb_apply_split_t(WreT, WimT)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        tb.lincomb_apply_split_t(WreT, WimT)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")]
+    assert len(kernels) == 1 and "dia_lincomb_pair" in kernels[0], kernels
 
 
 @pytest.mark.cuda

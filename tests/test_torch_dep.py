@@ -234,7 +234,8 @@ def test_bf16_twin_matches_pallas_interpret(offs):
     # and against the exact product of the rounded inputs
     d16 = tb.data.to(torch.float64).numpy()
     ref = dia_kernel.dia_lincomb_plain(
-        torch.from_numpy(d16), tb.offsets, W16.to(torch.float64)).numpy()
+        torch.from_numpy(d16), tb.offsets,
+        W16.to(torch.float64).T.contiguous()).numpy()
     assert np.all(np.abs(y.numpy() - ref) <= 2.0**-20 * room)
     assert dia_kernel.result_dtype(torch.bfloat16) == torch.float32
     assert dia_kernel.result_dtype(torch.float64) == torch.float64

@@ -8,14 +8,16 @@ import torch
 
 import jax.numpy as jnp
 
-from torch_port_helpers import (CPU, SMALL_GAMMA, SMALL_SIGMA, rel_err,
-                                small_gun_like, to_spec)
+from torch_port_helpers import (CPU, SMALL_GAMMA, SMALL_SIGMA, BankSpy,
+                                gallery_pair, rel_err, small_gun_like,
+                                to_spec)
 
 from neptpu.models.gallery.nlevp import _gun_from_matrices as jax_gun
 from neptpu.ops.mixed import make_mixed_bank as jax_make_mixed_bank
 from neptpu.ops.partitioned import build_spmf_shift_solver
 from neptpu_torch.interop import (bank_from_arrays, carry_from_arrays,
                                   shift_solver_from_arrays)
+from neptpu_torch.ops.mixed import make_mixed_bank
 from neptpu_torch.models.gallery.nlevp import _gun_from_matrices
 from neptpu_torch.solvers import iar_real as tiar
 from neptpu_torch.solvers import spmf_real as tspmf
@@ -114,3 +116,32 @@ def test_scan_chunk_reproduces_jax_hessenberg(gun, scaled):
         m + 1, -1).numpy()
     G = V[:16].conj() @ V[:16].T
     np.testing.assert_allclose(G, np.eye(16), atol=1e-10)
+
+
+# the scan holds its term weights term-major and hands them over as they
+# are: every step gives the bank two contiguous (terms, n) operands, never a
+# transposed view (which would cost a copy launch each on the card)
+@pytest.mark.parametrize("kind", ["mixed", "dia"])
+def test_scan_step_hands_the_bank_contiguous_term_major_operands(gun, kind):
+    m = 6
+    if kind == "mixed":
+        mats, fv, _ = gun
+        bank = make_mixed_bank(mats, dtype=np.float64, device=CPU)
+        Cre, Cim = tspmf.spmf_coeff_table(fv, SMALL_SIGMA, SMALL_GAMMA, m)
+        solver = tiar.as_pair_solver(tspmf.spmf_shift_block_lu(
+            mats, fv, SMALL_SIGMA, dtype=torch.float64, device=CPU))
+        gamma = 0.0
+    else:
+        tnep, _ = gallery_pair("dep_symm_double", 24)  # a DiaTermBank
+        bank, gamma = tnep.bank, 1.5
+        Cre, Cim = tiar.dep_coeff_table(tnep, -0.2 + 0.1j, gamma, m)
+        solver = tiar.as_pair_solver(tiar.dep_shift_block_lu(
+            tnep, -0.2 + 0.1j, dtype=torch.float64, device=CPU))
+    n = bank.n
+    spy = BankSpy(bank)
+    one, zero = (torch.ones(n, dtype=torch.float64),
+                 torch.zeros(n, dtype=torch.float64))
+    out = tiar.iar_real_scan(spy, m, Cre, Cim, gamma, 0.0, one, zero, solver)
+    assert spy.seen == [((bank.nterms, n), True)] * (2 * m)
+    ref = tiar.iar_real_scan(bank, m, Cre, Cim, gamma, 0.0, one, zero, solver)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))

@@ -218,6 +218,43 @@ def test_lapack_matches_jax():
         torch.complex128)
 
 
+def _companion_pencil(coeffs):
+    """Linearization ``(A, B)`` of ``sum_i lam^i coeffs[i]``: ``B`` carries
+    the leading coefficient, so a rank-deficient one makes ``B`` singular."""
+    d, k = len(coeffs) - 1, coeffs[0].shape[0]
+    A = np.zeros((d * k, d * k), dtype=complex)
+    B = np.eye(d * k, dtype=complex)
+    A[:-k, k:] = np.eye((d - 1) * k)
+    A[-k:] = np.hstack([-c for c in coeffs[:-1]])
+    B[-k:, -k:] = coeffs[-1]
+    return A, B
+
+
+# scipy.linalg.eig (QZ) on both sides: finite eigenvalues as sets to rel
+# 1e-10, the same number of infinite ones
+@pytest.mark.parametrize("lead_rank", [4, 2, 0])
+def test_geig_matches_jax_on_singular_and_invertible_pencils(lead_rank):
+    rng = np.random.default_rng(17)
+    k = 4
+    coeffs = [rng.standard_normal((k, k)) + 1j * rng.standard_normal((k, k))
+              for _ in range(3)]
+    coeffs[2] = (coeffs[2][:, :lead_rank]
+                 @ rng.standard_normal((lead_rank, k)))
+    A, B = _companion_pencil(coeffs)
+    w, V = lapack.geig(torch.from_numpy(A), torch.from_numpy(B))
+    assert w.dtype == V.dtype == torch.complex128 and V.shape == A.shape
+    w, V = w.numpy(), V.numpy()
+    wj = np.asarray(jlapack.geig(A, B)[0])
+    fin, finj = np.isfinite(w), np.isfinite(wj)
+    assert fin.sum() == finj.sum() == k * (2 - 1) + lead_rank
+    assert (~fin).sum() == (~finj).sum() == k - lead_rank
+    for x in w[fin]:
+        assert np.min(np.abs(wj[finj] - x)) <= 1e-10 * abs(x)
+    # the finite pairs solve the pencil
+    Vf = V[:, fin]
+    assert rel_err(A @ Vf, B @ Vf * w[fin][None, :]) < 1e-10
+
+
 # Pade scaling-and-squaring on both sides; a Jordan block is the case the
 # derivative tables feed it
 def test_expm_matches_jax():

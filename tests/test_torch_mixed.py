@@ -73,3 +73,34 @@ def test_lincomb_apply_split_matches_jax(gun_terms, route):
     # and against the scipy terms themselves
     ref = sum(A @ (Wre[:, i] + 1j * Wim[:, i]) for i, A in enumerate(mats))
     assert rel_err(y, ref) < 1e-12
+
+
+# the term-major split apply is the row-major one's body: equal bit for bit,
+# with the main terms a slice of the operand (gun: terms 0, 1) or a gather
+# (main terms not consecutive)
+@pytest.mark.parametrize("order", [(0, 1, 2, 3), (0, 2, 1, 3), (2, 0, 3, 1)])
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+def test_term_major_split_apply_equals_row_major(gun_terms, order, dtype):
+    (mats, _), _ = gun_terms
+    mats = [mats[i] for i in order]
+    tb = make_mixed_bank(mats, dtype=dtype, device=CPU)
+    consecutive = tb.main_idx == tuple(range(tb.main_idx[0],
+                                             tb.main_idx[-1] + 1))
+    assert isinstance(tb._sel, slice) == consecutive
+    rng = np.random.default_rng(12)
+    n, m = tb.n, tb.nterms
+    WreT = torch.from_numpy(rng.standard_normal((m, n)).astype(dtype))
+    WimT = torch.from_numpy(rng.standard_normal((m, n)).astype(dtype))
+    yre, yim = tb.lincomb_apply_split_t(WreT, WimT)
+    zre, zim = tb.lincomb_apply_split(WreT.T.contiguous(),
+                                      WimT.T.contiguous())
+    assert torch.equal(yre, zre) and torch.equal(yim, zim)
+    ref = sum(A @ (WreT[i].numpy() + 1j * WimT[i].numpy())
+              for i, A in enumerate(mats))
+    # float64 1e-12, float32 1e-5: reordered sums over n = 576 rows
+    tol = 1e-12 if dtype == np.float64 else 1e-5
+    assert rel_err(yre.numpy() + 1j * yim.numpy(), ref) < tol
+    # the real single-operand apply takes the same main selection
+    y = tb.lincomb_apply(WreT.T.contiguous())
+    assert rel_err(y.numpy(), ref.real - sum(
+        A @ (1j * WimT[i].numpy()) for i, A in enumerate(mats)).real) < tol

@@ -115,3 +115,45 @@ def test_term_banks_match_jax(fmt):
     assert rel_err(Z, Zj) < 1e-13
     for A, B in zip(tb.host_csr_terms(), jb.host_csr_terms()):
         assert abs(A - B).max() == 0
+
+
+# a model forms its term weights term-major, D @ V^T, for a bank that takes
+# them so: the DIA bank gets a contiguous (terms, n) operand (no transpose
+# copy in front of the kernel), and the result is that of the row-major
+# operand V @ D^T on the same bank (the same GEMM; f64, rel 1e-13)
+@pytest.mark.parametrize("kind", ["pep", "spmf", "dep"])
+@pytest.mark.parametrize("fmt", ["dia", "csr"])
+def test_mlincomb_hands_a_dia_bank_term_major_weights(kind, fmt):
+    from neptpu_torch.models.dep import DEP
+    from neptpu_torch.models.pep import PEP
+    from neptpu_torch.models.spmf import SPMF_NEP
+    from neptpu_torch.ops.sparse import make_term_bank
+
+    K, M, _, _ = small_gun_like(nx=12)
+    mats = [K, -M, (0.5 * K + M).tocsr()]
+    bank = make_term_bank(mats, fmt=fmt, device=CPU)
+    nep = {"pep": lambda: PEP(None, bank=bank),
+           "dep": lambda: DEP(None, tauv=(0.0, 0.5, 1.5), bank=bank),
+           "spmf": lambda: SPMF_NEP(
+               None, [lambda S: S, lambda S: S @ S,
+                      lambda S: torch.eye(S.shape[0], dtype=S.dtype)],
+               bank=bank)}[kind]()
+    seen = []
+    if fmt == "dia":
+        apply_t = bank.lincomb_apply_t
+        bank.lincomb_apply_t = lambda WT: (seen.append(WT), apply_t(WT))[1]
+    else:
+        assert not hasattr(bank, "lincomb_apply_t")
+    rng = np.random.default_rng(34)
+    V = torch.from_numpy(rng.standard_normal((bank.n, 3))
+                         + 1j * rng.standard_normal((bank.n, 3)))
+    y = nep.Mlincomb(0.3 + 0.2j, V, a=np.array([1.0, -0.5, 2.0]))
+    if fmt == "dia":
+        assert len(seen) == 1
+        assert seen[0].shape == (3, bank.n) and seen[0].is_contiguous()
+    # against the same model on the CSR bank of the same terms (row-major)
+    csr = make_term_bank(mats, fmt="csr", device=CPU)
+    other = type(nep).__new__(type(nep))
+    other.__dict__.update(nep.__dict__, bank=csr)
+    yo = other.Mlincomb(0.3 + 0.2j, V, a=np.array([1.0, -0.5, 2.0]))
+    assert rel_err(y.numpy(), yo.numpy()) < 1e-13

@@ -9,8 +9,9 @@ import torch
 import jax.numpy as jnp
 
 from torch_port_helpers import (CPU, DEP_SIGMA as SIGMA, SMALL_GAMMA,
-                                SMALL_SIGMA, conj_set_gap, gallery_pair,
-                                rel_err, small_gun_like, to_spec)
+                                SMALL_SIGMA, BankSpy, conj_set_gap,
+                                gallery_pair, rel_err, small_gun_like,
+                                to_spec)
 
 from neptpu.models.gallery.nlevp import _gun_from_matrices as jax_gun
 from neptpu_torch.interop import (block_lu_from_arrays, carry_from_arrays,
@@ -114,3 +115,21 @@ def test_tiar_real_spmf_matches_jax():
                                  **args)
     assert len(lt) == len(lj) >= 2 and Q.shape[0] == tnep.n
     assert max(np.min(np.abs(np.asarray(lj) - x)) / abs(x) for x in lt) < 1e-9
+
+
+# as in iar_real: the (terms, n) weights reach the bank as they are held
+def test_tiar_step_hands_the_bank_contiguous_term_major_operands():
+    tnep, _ = gallery_pair("dep_symm_double", 24)  # a DiaTermBank
+    n, m, gamma = tnep.n, 8, 1.5
+    Cre, Cim = tiar.dep_coeff_table(tnep, SIGMA, gamma, m)
+    one, zero = (torch.ones(n, dtype=torch.float64),
+                 torch.zeros(n, dtype=torch.float64))
+    lu, piv = tiar.dep_shift_block_lu(tnep, SIGMA, dtype=torch.float64,
+                                      device=CPU)
+    spy = BankSpy(tnep.bank)
+    out = ttiar.tiar_real_scan(spy, m, Cre, Cim, gamma, 0.0, one, zero, lu,
+                               piv)
+    assert spy.seen == [((tnep.bank.nterms, n), True)] * (2 * m)
+    ref = ttiar.tiar_real_scan(tnep.bank, m, Cre, Cim, gamma, 0.0, one, zero,
+                               lu, piv)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))

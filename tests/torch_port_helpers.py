@@ -97,6 +97,29 @@ def conj_set_gap(a, b):
                / abs(x) for x in a)
 
 
+class BankSpy:
+    """A bank seen by a scan: records the shape, strides and contiguity of
+    every operand handed to the term-major split apply, then applies the
+    real bank."""
+
+    def __init__(self, bank):
+        self.bank = bank
+        self.seen = []
+
+    def __getattr__(self, name):
+        return getattr(self.bank, name)
+
+    def lincomb_apply_split_t(self, WreT, WimT):
+        for W in (WreT, WimT):
+            self.seen.append((tuple(W.shape), W.is_contiguous()))
+        return self.bank.lincomb_apply_split_t(WreT, WimT)
+
+    def lincomb_apply_split(self, Wre, Wim):
+        raise AssertionError("the scan handed the bank a row-major operand")
+
+    lincomb_apply = lincomb_apply_pair = lincomb_apply_split
+
+
 def rel_err(a, b):
     a = np.asarray(a)
     b = np.asarray(b)
