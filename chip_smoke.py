@@ -64,6 +64,13 @@ Phases, a few informative lines each (any failure exits non-zero):
      ``resinv``/``augnewton``/``quasinewton``/``newton`` from one of
      ``iar_real``'s pairs perturbed by 1e-3, each converging to its default
      tolerance onto an eigenvalue ``iar_real`` found (rel 1e-6);
+   * dep-deflation, the same problem through the deflation and projection
+     solvers on the card: ``jd_effenberger`` (3 pairs; the deflated problem
+     keeps the DIA bank, padded, and low-rank factor terms), ``jd_betcke``
+     (2 pairs), ``nlar`` (3 pairs) and ``iar``/``tiar`` with
+     ``proj_solve=True`` (4 pairs each), every pair at backward error
+     <= 1e-10 and within rel 1e-6 of float64 ``iar_real``'s eigenvalues,
+     the deflating solvers' eigenvalues distinct, within 150 s;
 5. refine-chip: the gun_like candidates refined again on the card
    (``BatchedShiftSMW``: float32 factors + float64 iterative refinement)
    against the host backend: >= 10 distinct at 1e-9, eigenvalues within rel
@@ -506,10 +513,7 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None):
             data, offs, WT), reps, inner)
         bound_ms, by, nbytes = _bound(n, m, ndiag, 1, data.element_size(),
                                       dtn)
-        lib = None
-        csr_ms = None
-        if pair:
-            lib = _library_times(torch, data, offs, WT, WimT, y_plain, tol)
+        lib = _library_times(torch, data, offs, WT, WimT, y_plain, tol)
         lib_ms, lib_graph_ms = lib["mv"] if lib else (None, None)
         print(f"[kernel] {name}: n={n} m={m} ndiag={ndiag} rows/thread="
               f"{launcher.vec} max_rel_err="
@@ -560,6 +564,7 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None):
                                                              WimT),
             reps, inner)
         pb_ms, pby, pbytes = _bound(n, m, ndiag, 2, data.element_size(), dtn)
+        csr_ms = None
         if small and data.dtype == torch.float32:
             # the port's own CSR bank on the same operands (two applies)
             mats = [A.tocsr() for A in _bank_terms(data, offs)]
@@ -1013,6 +1018,24 @@ def phase_dep(torch, dia_kernel, cfg):
     return out
 
 
+def perturbed_start(dep, cfg, nearest=False):
+    """The best-isolated of the float32 ``[dep]`` run's first ``k``
+    converged pairs (``nearest``: the one nearest sigma), eigenvalue and
+    vector perturbed by 1e-3: ``(index, separations, lam0, v0)``."""
+    found32 = dep["iar_real"][0][: dep["iar_real"][3]]
+    sep = [np.min(np.abs(np.delete(found32, i) - x)) for i, x in
+           enumerate(found32)]
+    i0 = int(np.argmin(np.abs(found32[: cfg["k"]] - cfg["sigma"])) if nearest
+             else np.argmax(sep[: cfg["k"]]))
+    rng = np.random.default_rng(0)
+    q = dep["iar_real"][1][:, i0]
+    n = q.shape[0]
+    lam0 = complex(found32[i0]) * (1 + 1e-3)
+    v0 = q + 1e-3 * np.linalg.norm(q) / np.sqrt(n) * (
+        rng.standard_normal(n) + 1j * rng.standard_normal(n))
+    return i0, sep, lam0, v0
+
+
 def phase_dep_protocol(torch, dia_kernel, cfg, dep):
     """The same delay problem through the protocol solvers on the card, in
     complex128 on the gallery's float64 operands.
@@ -1075,15 +1098,7 @@ def phase_dep_protocol(torch, dia_kernel, cfg, dep):
               and max(gaps) <= 1e-6,
               f"dep-protocol {name}: {len(lams)} pairs, gap {max(gaps):.3e}")
     # Newton family from the best-isolated converged pair, perturbed by 1e-3
-    found32 = dep["iar_real"][0][: dep["iar_real"][3]]
-    sep = [np.min(np.abs(np.delete(found32, i) - x)) for i, x in
-           enumerate(found32)]
-    i0 = int(np.argmax(sep[: cfg["k"]]))
-    rng = np.random.default_rng(0)
-    q = dep["iar_real"][1][:, i0]
-    lam0 = complex(found32[i0]) * (1 + 1e-3)
-    v0 = q + 1e-3 * np.linalg.norm(q) / np.sqrt(nep.n) * (
-        rng.standard_normal(nep.n) + 1j * rng.standard_normal(nep.n))
+    i0, sep, lam0, v0 = perturbed_start(dep, cfg)
     for name, solver in (("resinv", resinv), ("augnewton", augnewton),
                          ("quasinewton", quasinewton), ("newton", newton)):
         t0 = time.perf_counter()
@@ -1107,6 +1122,159 @@ def phase_dep_protocol(torch, dia_kernel, cfg, dep):
           "MiB", flush=True)
     check(entry["dia_lincomb_pair_f64"] > 0,
           "dep-protocol: compute_Mlincomb launched no float64 pair kernel")
+    return entry, found
+
+
+def _separation(lams):
+    """Smallest pairwise relative distance of ``lams`` (inf for one)."""
+    lams = np.asarray(lams)
+    return min((abs(a - b) / abs(a) for i, a in enumerate(lams)
+                for b in lams[i + 1:]), default=np.inf)
+
+
+def phase_dep_deflation(torch, dia_kernel, cfg, dep, found):
+    """The deflation/projection family on the same float64 delay problem in
+    complex128: ``jd_effenberger`` (Effenberger deflation: the padded DIA
+    bank through the pair kernel plus the low-rank factor terms, the
+    Schur-complement solve from the second level on), ``jd_betcke``
+    (Petrov-Galerkin), ``nlar`` and ``iar``/``tiar`` with
+    ``proj_solve=True``, each against the eigenvalues float64 ``iar_real``
+    found in ``[dep-protocol]``.
+
+    The tolerances come from the problem's scale ``s = |sigma| sqrt(n) +
+    sum_i |exp(-tau_i sigma)| ||A_i||_F`` (~6e8: the bank's entries reach
+    ~1e7): ``jd_effenberger``'s absolute residual tolerance is 1e-11 s,
+    the others measure the backward error (relative to the same sum) and
+    take 1e-12, or their default.  ``jd_effenberger`` hands its inner solver
+    tol/10 and accepts a projected pair only if its absolute residual is
+    below 50 tol; the default inner IAR reads that tolerance as a backward
+    error and expands around sigma, where a deflated eigenvalue 1e-3 away
+    puts a pole into the deflated problem's term functions.  So its inner
+    solver here is IAR held to the absolute residual with a Taylor degree of
+    at most 12.  ``nlar``'s discard radius R is 1e-5: the default 0.01 is
+    wider than the spacing of the eigenvalues near -1 (4e-4 at n = 1e4), so a
+    converged eigenvalue's neighbours were discarded with it and it
+    reconverged."""
+    import functools
+
+    from neptpu_torch import (FactorizeLinSolverCreator, IARInnerSolver,
+                              Logger, NoConvergenceException,
+                              ResidualErrmeasure, iar, jd_betcke,
+                              jd_effenberger, nlar, residual_eigval_sorter,
+                              tiar)
+
+    class Creator(FactorizeLinSolverCreator):
+        """The default creator, counting and timing its factorizations."""
+        made = 0
+        seconds = 0.0
+
+        def _make(self, nep, lam):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver = super()._make(nep, lam)
+            torch.cuda.synchronize()
+            Creator.seconds += time.perf_counter() - t0
+            Creator.made += 1
+            return solver
+
+    class Iterations(Logger):
+        last = 0
+
+        def iteration(self, iter_idx, errs=None, lams=None, level=1):
+            Iterations.last = max(Iterations.last, int(iter_idx))
+
+    nep, backward, sigma = dep["nep0"], dep["backward64"], cfg["sigma"]
+    n = nep.n
+    mats = nep.bank.host_csr_terms()
+    scale = abs(sigma) * np.sqrt(n) + sum(
+        abs(np.exp(-t * sigma)) * np.sqrt(A.multiply(A).sum())
+        for t, A in zip(nep.tauv, mats))
+    _, _, lam0, v0 = perturbed_start(dep, cfg)
+    # jd_betcke finds eigenvalues in their order of distance to the target:
+    # it starts from the pair nearest sigma
+    _, _, lam1, v1 = perturbed_start(dep, cfg, nearest=True)
+    inner = IARInnerSolver(maxit=12, iar_function=functools.partial(
+        iar, errmeasure=ResidualErrmeasure))
+    runs = [
+        ("jd_effenberger", 3, 1e-11 * scale, True,
+         lambda tol: jd_effenberger(
+             nep, neigs=3, maxit=60, lam=lam0, v=v0, target=sigma,
+             tol=tol, inner_solver_method=inner, linsolvercreator=Creator(),
+             logger=Iterations(), device=DEVICE)),
+        ("jd_betcke", 2, 1e-12, False,
+         lambda tol: jd_betcke(
+             nep, neigs=2, maxit=60, projtype=":PetrovGalerkin", lam=lam1,
+             v=v1, target=sigma, tol=tol, linsolvercreator=Creator(),
+             logger=Iterations(), device=DEVICE)),
+        ("nlar", 3, 1e-12, True,
+         lambda tol: nlar(
+             nep, neigs=3, maxit=60, lam=sigma, v=v0, tol=tol, R=1e-5,
+             num_restart_ritz_vecs=3,
+             eigval_sorter=residual_eigval_sorter, linsolvercreator=Creator(),
+             logger=Iterations(), device=DEVICE)),
+    ] + [(f"{name}(proj_solve)", 4, None, False,
+          lambda tol, solver=solver: solver(
+              nep, sigma=sigma, maxit=30, neigs=4, proj_solve=True,
+              v=np.ones(n), linsolvercreator=Creator(), logger=Iterations(),
+              device=DEVICE))
+         for name, solver in (("iar", iar), ("tiar", tiar))]
+    dia_kernel.DIA_SPMV.reset_counts()
+    t_phase = time.perf_counter()
+    print(f"[dep-deflation] dep_symm_double n={n} float64, complex128, "
+          f"sigma={sigma}: scale {scale:.6e}; starts lam0={lam0:.8f} "
+          f"(jd_effenberger, nlar), {lam1:.8f} (jd_betcke); dense "
+          "padded terms would take "
+          f"{3 * (n + 3) ** 2 * 8 / 2**30:.2f} GiB and dense low-rank terms "
+          f"{10 * (n + 3) ** 2 * 16 / 2**30:.2f} GiB at 3 levels", flush=True)
+    for name, want, tol, distinct, run in runs:
+        Creator.made = Iterations.last = 0
+        Creator.seconds = 0.0
+        before = dict(dia_kernel.DIA_SPMV.entry_counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            out = run(tol)
+        except NoConvergenceException as e:
+            raise SmokeFailure(f"dep-deflation {name}: {e}; partial "
+                               f"eigenvalues {np.asarray(e.lam)}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lams, V = np.asarray(out[0]), out[1]
+        launched = {k: v - before[k] for k, v in
+                    dia_kernel.DIA_SPMV.entry_counts.items() if v > before[k]}
+        Vh = V.cpu().numpy()
+        errs = [backward(complex(l), Vh[:, i] / np.linalg.norm(Vh[:, i]))
+                for i, l in enumerate(lams)]
+        gaps = [_conj_gap(x, found) for x in lams]
+        sep = _separation(lams)
+        print(f"[dep-deflation] {name}: {len(lams)} pairs "
+              f"{np.array2string(lams, precision=10)} in {seconds:.3f} s, "
+              f"tol {'default' if tol is None else '%.6e' % tol}, outer "
+              f"iterations {Iterations.last}, factorizations {Creator.made} "
+              f"({Creator.seconds:.3f} s), "
+              f"launches {launched}, peak_device_mem "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; max "
+              f"backward error {max(errs):.3e} (gate 1e-10), max rel gap to "
+              f"iar_real's eigenvalues {max(gaps):.3e} (gate 1e-6), smallest "
+              f"rel separation {sep:.3e}"
+              + (" (gate 1e-8)" if distinct else ""), flush=True)
+        check(len(lams) == want and V.shape == (n, want)
+              and V.device.type == DEVICE,
+              f"dep-deflation {name}: {len(lams)} pairs, vectors "
+              f"{tuple(V.shape)} on {V.device}")
+        check(max(errs) <= 1e-10 and max(gaps) <= 1e-6,
+              f"dep-deflation {name}: backward error {max(errs):.3e}, gap "
+              f"{max(gaps):.3e}")
+        check(not distinct or sep > 1e-8,
+              f"dep-deflation {name}: eigenvalues {lams} reconverged")
+        check(launched.get("dia_lincomb_pair_f64", 0) > 0,
+              f"dep-deflation {name}: no float64 pair launch ({launched})")
+    t_phase = time.perf_counter() - t_phase
+    entry = dict(dia_kernel.DIA_SPMV.entry_counts)
+    print(f"[dep-deflation] phase {t_phase:.3f} s (budget 150 s), launches "
+          f"{ {k: v for k, v in entry.items() if v} }", flush=True)
+    check(t_phase <= 150.0, f"dep-deflation took {t_phase:.1f} s (> 150 s)")
     return entry
 
 
@@ -1336,7 +1504,10 @@ def main():
     dep = phase_dep(torch, dia_kernel, DEP)
     for key, entry in dep["entry"].items():
         paths[f"dep {key}"] = entry
-    paths["dep-protocol"] = phase_dep_protocol(torch, dia_kernel, DEP, dep)
+    paths["dep-protocol"], found = phase_dep_protocol(torch, dia_kernel, DEP,
+                                                      dep)
+    paths["dep-deflation"] = phase_dep_deflation(torch, dia_kernel, DEP, dep,
+                                                 found)
     del dep
     phase_refine_chip(torch, gun)
     if args.profile:

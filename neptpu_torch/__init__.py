@@ -15,8 +15,14 @@ paths and names:
   block LU, partitioned SPIKE + SMW) and Newton refinement on the host or,
   batched over shifts, on the device;
 * the protocol solvers (``iar``, ``tiar``, ``newton``, ``augnewton``,
-  ``resinv``, ``quasinewton``, ``newtonqr``, ``implicitdet``) with the
-  linear-solver, orthogonalization, error-measure and logger layers.
+  ``resinv``, ``quasinewton``, ``newtonqr``, ``implicitdet``, ``mslp``,
+  ``sgiter``, ``rfi``, ``rfi_b``, ``polyeig``) with the linear-solver,
+  linear-eigensolver, orthogonalization, error-measure and logger layers;
+* deflation (``deflate_eigpair``: the padded original terms in their own
+  storage plus low-rank factor terms) and projection (``create_proj_NEP``),
+  the inner solvers on projected problems (``inner_solve``) and the
+  projection solvers built on them (``jd_betcke``, ``jd_effenberger``,
+  ``nlar``, and ``iar``/``tiar`` with ``proj_solve=True``).
 
 It imports torch, numpy and scipy — never jax or neptpu.  Entry points run on
 the card unless the caller passes ``device="cpu"``
@@ -32,30 +38,54 @@ from .core.logger import (ErrorLogger, Logger, PrintLogger, push_info,
                           push_iteration_info)
 from .core.nep import (NEP, compute_Mder, compute_Mlincomb, compute_MM,
                        compute_resnorm)
+from .models.cheb import ChebPEP
+from .models.deflation import (DeflatedGenericNEP, DeflatedNEP,
+                               DeflatedNEPMM, DeflatedSPMF, deflate_eigpair,
+                               get_deflated_eigpairs)
 from .models.dep import DEP
 from .models.gallery import nep_gallery
+from .models.lowrank import LowRankFactorizedNEP, LowRankMatrixAndFunction
 from .models.pep import PEP
+from .models.projection import (Proj_NEP, Proj_SPMF_NEP, create_proj_NEP,
+                                expand_projectmatrices, set_projectmatrices)
 from .models.spmf import AbstractSPMF, SPMF_NEP
 from .models.sumnep import GenericSumNEP, SPMFSumNEP, SumNEP
 from .ops import matfun
+from .ops.eigsolve import (ArnoldiEigSolver, DefaultEigSolver,
+                           EigenEigSolver, EigSolver, eig_solve)
 from .ops.linsolve import (BackslashLinSolver, BackslashLinSolverCreator,
-                           DefaultLinSolverCreator, FactorizeLinSolver,
+                           DefaultLinSolverCreator, DeflatedNEPLinSolver,
+                           DeflatedNEPLinSolverCreator, FactorizeLinSolver,
                            FactorizeLinSolverCreator, GMRESLinSolver,
-                           GMRESLinSolverCreator, LinSolver,
+                           GMRESLinSolverCreator, LinSolver, LinSolverCreator,
                            SparseFactorizeLinSolver,
                            SparseFactorizeLinSolverCreator, create_linsolver,
                            lin_solve)
 from .ops.orth import (DGKS, ClassicalGS, ModifiedGS,
                        orthogonalize_and_normalize)
+from .solvers.companion import companion, polyeig
 from .solvers.iar import iar
 from .solvers.iar_real import dep_shift_block_lu, iar_real, iar_real_scan
+from .solvers.inner import (ContourBeynInnerSolver, DefaultInnerSolver,
+                            IARChebInnerSolver, IARInnerSolver, InnerSolver,
+                            NewtonInnerSolver, NleigsInnerSolver,
+                            PolyeigInnerSolver, SGIterInnerSolver,
+                            inner_solve)
+from .solvers.jd import jd_betcke, jd_effenberger
+from .solvers.mslp import mslp
 from .solvers.newton import (augnewton, implicitdet, newton, newtonqr,
                              quasinewton, resinv)
+from .solvers.nlar import (default_eigval_sorter, nlar,
+                           residual_eigval_sorter, threshold_eigval_sorter)
 from .solvers.refine import newton_refine, resinv_refine
 from .solvers.rf import compute_rf
+from .solvers.rfi import rfi, rfi_b
+from .solvers.sgiter import sgiter
 from .solvers.spmf_real import iar_real_spmf, iar_real_spmf_multishift
 from .solvers.tiar import tiar
 from .solvers.tiar_real import tiar_real, tiar_real_scan, tiar_real_spmf
+
+jd = jd_betcke
 
 __all__ = [
     "NEP",
@@ -120,4 +150,49 @@ __all__ = [
     "resinv_refine",
     "iar_real_spmf",
     "iar_real_spmf_multishift",
+    "LowRankFactorizedNEP",
+    "LowRankMatrixAndFunction",
+    "ChebPEP",
+    "Proj_NEP",
+    "Proj_SPMF_NEP",
+    "create_proj_NEP",
+    "set_projectmatrices",
+    "expand_projectmatrices",
+    "DeflatedNEP",
+    "DeflatedNEPMM",
+    "DeflatedGenericNEP",
+    "DeflatedSPMF",
+    "deflate_eigpair",
+    "get_deflated_eigpairs",
+    "LinSolverCreator",
+    "DeflatedNEPLinSolver",
+    "DeflatedNEPLinSolverCreator",
+    "EigSolver",
+    "EigenEigSolver",
+    "ArnoldiEigSolver",
+    "DefaultEigSolver",
+    "eig_solve",
+    "companion",
+    "polyeig",
+    "mslp",
+    "sgiter",
+    "rfi",
+    "rfi_b",
+    "InnerSolver",
+    "DefaultInnerSolver",
+    "NewtonInnerSolver",
+    "PolyeigInnerSolver",
+    "IARInnerSolver",
+    "IARChebInnerSolver",
+    "SGIterInnerSolver",
+    "ContourBeynInnerSolver",
+    "NleigsInnerSolver",
+    "inner_solve",
+    "nlar",
+    "default_eigval_sorter",
+    "residual_eigval_sorter",
+    "threshold_eigval_sorter",
+    "jd_betcke",
+    "jd_effenberger",
+    "jd",
 ]

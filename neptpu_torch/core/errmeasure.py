@@ -52,9 +52,13 @@ class ResidualErrmeasure(Errmeasure):
 
 
 def _term_norm(A):
-    """Frobenius norm of one operand: a dense tensor, or a sparse term whose
-    stored values are ``A.data``."""
-    return _norm(A if isinstance(A, torch.Tensor) else A.data)
+    """Frobenius norm of one operand: a dense tensor, a term that knows its
+    norm (a low-rank term), or a sparse term whose stored values are
+    ``A.data``."""
+    if isinstance(A, torch.Tensor):
+        return _norm(A)
+    fro = getattr(A, "fro_norm", None)
+    return float(fro) if fro is not None else _norm(A.data)
 
 
 class StandardSPMFErrmeasure(Errmeasure):

@@ -26,7 +26,7 @@ from .solvers.iar_real import DenseBlockLU
 
 __all__ = ["bank_from_arrays", "dep_from_arrays", "block_lu_from_arrays",
            "shift_solver_from_arrays", "batched_shift_solver_from_arrays",
-           "carry_from_arrays"]
+           "carry_from_arrays", "deflated_from_arrays", "proj_from_arrays"]
 
 
 def _t(x, device, dtype=None):
@@ -174,3 +174,25 @@ def carry_from_arrays(*arrays, device=None):
     tensors (the port's scans update their carry in place)."""
     device = resolve_device(device)
     return tuple(torch.tensor(np.asarray(x), device=device) for x in arrays)
+
+
+def deflated_from_arrays(orgnep, S0, V0, mode=":SPMF"):
+    """The deflated NEP over the port's ``orgnep`` (built from the JAX
+    original's operands, e.g. by :func:`dep_from_arrays`) for the invariant
+    pair ``(S0, V0)`` of a JAX deflated NEP, taken as it is (no new
+    normalization), in ``mode`` (``":SPMF"``, ``":Generic"`` or ``":MM"``)."""
+    from .models.deflation import _make
+
+    return _make(orgnep, np.asarray(S0), np.asarray(V0), mode)
+
+
+def proj_from_arrays(orgnep, W, V, maxsize=None):
+    """The projected NEP ``W^H M(lam) V`` of the port's ``orgnep`` for the
+    bases ``(W, V)`` of a JAX projected NEP (numpy), on ``orgnep``'s
+    device."""
+    from .models.projection import create_proj_NEP
+
+    pnep = create_proj_NEP(orgnep, maxsize)
+    pnep.set_projectmatrices(torch.as_tensor(np.asarray(W)),
+                             torch.as_tensor(np.asarray(V)))
+    return pnep

@@ -111,6 +111,34 @@ class DiaTermBank:
         return DiaTermBank(self.data.to(dtype), self.offsets, self.shape,
                            host_data=self._host_data)
 
+    def padded(self, p, eye_first=False):
+        """The terms with ``p`` zero rows and columns appended, in the same
+        storage and with the same offsets (the deflated problem's original
+        terms).  ``eye_first``: an identity on the first n rows comes first
+        (a delay problem's ``-lam I`` term, which its bank does not hold).
+
+        Entries whose column falls outside the n x n matrix are zeroed, so
+        the appended columns stay zero whatever the stored layout held
+        there."""
+        n, offs = self.n, self.offsets
+        data, fro = self.data, self.fro_norms.to(self.device)
+        if eye_first:
+            if 0 not in offs:
+                offs = tuple(sorted(offs + (0,)))
+                d = offs.index(0)
+                data = torch.cat([data[:, :d], torch.zeros_like(data[:, :1]),
+                                  data[:, d:]], dim=1)
+            eye = torch.zeros_like(data[:1])
+            eye[0, offs.index(0)] = 1.0
+            data = torch.cat([eye, data])
+            fro = torch.cat([torch.full((1,), float(np.sqrt(n)),
+                                        dtype=fro.dtype, device=fro.device),
+                             fro])
+        r = torch.arange(n, device=self.device)
+        inside = torch.stack([(r + o >= 0) & (r + o < n) for o in offs])
+        data = torch.nn.functional.pad(data * inside.to(data.dtype), (0, p))
+        return DiaTermBank(data, offs, (n + p, n + p), fro_norms=fro)
+
     def launcher(self, dt):
         """The bank prepared for kernel launches in ``dt``, built at first
         use per dtype: the stored values themselves when the dtype matches

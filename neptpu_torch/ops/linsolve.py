@@ -33,6 +33,9 @@ __all__ = [
     "FactorizeLinSolverCreator",
     "BackslashLinSolverCreator",
     "GMRESLinSolverCreator",
+    "DeflatedNEPLinSolver",
+    "DeflatedNEPLinSolverCreator",
+    "LinSolverCreator",
     "DefaultLinSolverCreator",
     "create_linsolver",
     "gmres",
@@ -86,7 +89,10 @@ class FactorizeLinSolver(LinSolver):
         A = _dense_mder(nep, lam)
         self.dtype = A.dtype
         self.device = A.device
-        self.lu, self.piv = torch.linalg.lu_factor(A)
+        # an exactly singular M(lam) (a small projected problem at its
+        # eigenvalue) gives inf/nan solutions, as LAPACK's getrf does, for
+        # the error measure to judge: no exception
+        self.lu, self.piv, _ = torch.linalg.lu_factor_ex(A)
 
     def solve(self, b, tol=None):
         b = torch.as_tensor(b, device=self.device)
@@ -209,6 +215,43 @@ class GMRESLinSolver(LinSolver):
                      maxiter=self.maxiter, M=self.preconditioner)
 
 
+class DeflatedNEPLinSolver(LinSolver):
+    """Schur-complement solve of the bordered deflated system
+    ``[M U; X^H 0]`` over the original problem's solver (minimality index
+    1): ``X = V0``, ``U = U(lam)`` of the deflated problem.
+
+    The first solve sends its right-hand side and the p columns of ``U`` to
+    the original solver as one block of p+1 columns; ``Z = M^{-1} U`` and the
+    p x p Schur complement ``-X^H Z`` do not depend on the right-hand side and
+    are kept, so a later solve is one original solve."""
+
+    def __init__(self, deflated_nep, lam, orglinsolver):
+        self.deflated_nep = deflated_nep
+        self.lam = lam
+        self.orglinsolver = orglinsolver
+        self._Z = self._S = None
+
+    def solve(self, b, tol=None):
+        from ..models.deflation import deflated_nep_compute_Q
+
+        dnep = self.deflated_nep
+        n = dnep.n0
+        X = dnep.V0_t
+        b = torch.as_tensor(b, device=X.device)
+        b = b.to(torch.promote_types(b.dtype, X.dtype))
+        b1, b2 = b[:n], b[n:]
+        if self._Z is None:
+            U = deflated_nep_compute_Q(dnep, self.lam, 0)
+            sol = lin_solve(self.orglinsolver,
+                            torch.cat([b1[:, None], U], dim=1), tol=tol)
+            b1t, self._Z = sol[:, 0], sol[:, 1:]
+            self._S = -(X.conj().T @ self._Z)
+        else:
+            b1t = lin_solve(self.orglinsolver, b1, tol=tol)
+        v2 = torch.linalg.solve(self._S, b2 - X.conj().T @ b1t)
+        return torch.cat([b1t - self._Z @ v2, v2])
+
+
 # ---------------------------------------------------------------------------
 # Creators: strategy objects deciding when factorizations happen.
 # ---------------------------------------------------------------------------
@@ -217,6 +260,18 @@ class GMRESLinSolver(LinSolver):
 class LinSolverCreator:
     def create(self, nep, lam):
         raise NotImplementedError
+
+
+class DeflatedNEPLinSolverCreator(LinSolverCreator):
+    """Wraps the original problem's creator for the bordered solve of a
+    deflated problem."""
+
+    def __init__(self, orglinsolvercreator=None):
+        self.orglinsolvercreator = orglinsolvercreator
+
+    def create(self, nep, lam):
+        org = create_linsolver(self.orglinsolvercreator, nep.orgnep, lam)
+        return DeflatedNEPLinSolver(nep, lam, org)
 
 
 class _RecyclingCreator(LinSolverCreator):

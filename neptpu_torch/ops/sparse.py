@@ -128,6 +128,16 @@ class DenseTermBank:
         dt = torch.promote_types(W.dtype, self.A.dtype)
         return torch.einsum("mij,jkm->ik", self.A.to(dt), W.to(dt))
 
+    def padded(self, p, eye_first=False):
+        """The terms with ``p`` zero rows and columns appended (an identity
+        on the first n rows first when ``eye_first``)."""
+        n = self.n
+        A = self.A
+        if eye_first:
+            A = torch.cat([torch.eye(n, dtype=A.dtype, device=A.device)[None],
+                           A])
+        return DenseTermBank(torch.nn.functional.pad(A, (0, p, 0, p)))
+
     def mm_apply(self, V, F):
         dt = torch.promote_types(torch.promote_types(V.dtype, F.dtype),
                                  self.A.dtype)
@@ -224,6 +234,19 @@ class SparseTermBank:
         return [sp.csr_matrix((data[i].copy(), indices.copy(), indptr.copy()),
                               shape=self.shape)
                 for i in range(data.shape[0])]
+
+    def padded(self, p, eye_first=False):
+        """The terms with ``p`` zero rows and columns appended (an identity
+        on the first n rows first when ``eye_first``), aligned anew."""
+        import scipy.sparse as sp
+
+        mats = self.host_csr_terms()
+        if eye_first:
+            mats = [sp.eye(self.n, format="csr")] + mats
+        zero = sp.csr_matrix((p, p))
+        return SparseTermBank.from_matrices(
+            [sp.block_diag((A, zero), format="csr") for A in mats],
+            dtype=self.dtype, device=self.device)
 
     def term(self, i):
         return CSR(self.data[i], self.indices, self.row_ids, self.indptr,

@@ -19,10 +19,12 @@ import torch
 from ..config import real_of
 from ..core.errmeasure import estimate_error
 from ..core.nep import compute_Mlincomb
+from ..models.projection import create_proj_NEP
 from ..ops.linsolve import create_linsolver, lin_solve
 from ..ops.orth import DGKS, orthogonalize_and_normalize
 from .common import (NoConvergenceException, init_vec, scalar_as,
                      setup_solver, solver_device)
+from .inner import inner_solve
 
 __all__ = ["iar"]
 
@@ -41,10 +43,6 @@ def iar(nep, dtype=None, orthmethod=None, maxit=30, linsolvercreator=None,
     eigenvectors and the Krylov basis (tensors on the device).  Raises
     :class:`NoConvergenceException` carrying the partial results when fewer
     than ``neigs`` pairs converge in ``maxit`` steps."""
-    if proj_solve:
-        raise NotImplementedError(
-            "iar(proj_solve=True) needs the projected-problem and inner-"
-            "solver layers, which the port does not have yet")
     device = solver_device(nep, device)
     dtype, em, lg = setup_solver(nep, dtype, errmeasure, logger)
     if tol is None:
@@ -73,6 +71,8 @@ def iar(nep, dtype=None, orthmethod=None, maxit=30, linsolvercreator=None,
     v0 = init_vec(v, n, dtype, device=device).to(cdt)
     V[:n, 0] = v0 / torch.linalg.vector_norm(v0)
 
+    pnep = create_proj_NEP(nep) if proj_solve else None
+
     k = 1
     conv_eig = 0
     while k <= m and conv_eig < neigs:
@@ -93,6 +93,17 @@ def iar(nep, dtype=None, orthmethod=None, maxit=30, linsolvercreator=None,
             D, Z = np.linalg.eig(H[:k, :k])
             Q = V[:n, :k] @ torch.as_tensor(Z, dtype=cdt, device=device)
             lams = sigma + gamma / D
+            if proj_solve:
+                # the Ritz values refined on the projection onto the first
+                # block of the basis
+                QQ, RR = torch.linalg.qr(V[:n, :k])
+                pnep.set_projectmatrices(QQ, QQ)
+                lproj, Qproj = inner_solve(
+                    inner_solver_method, dtype, pnep,
+                    V=RR.cpu().numpy() @ Z, lamv=lams.copy(), neigs=k,
+                    sigma=np.mean(lams), inner_logger=inner_logger, tol=tol)
+                Q = QQ @ torch.as_tensor(Qproj, dtype=cdt, device=device)
+                lams = np.asarray(lproj)
             errs = np.array([float(estimate_error(em, lams[s], Q[:, s]))
                              for s in range(len(lams))])
             err_hist[k - 1, : len(lams)] = errs

@@ -2,6 +2,7 @@
 
 * scalar Newton iteration (the default)
 * PEP closed form via the roots of the scalar polynomial
+* any InnerSolver on the 1 x 1 projected problem (``inner_solve_rf``)
 """
 from __future__ import annotations
 
@@ -99,6 +100,8 @@ def compute_rf(dtype, nep, x, inner_solver=None, y=None, target=0.0,
         return vals
     if isinstance(inner_solver, ScalarNewtonRF):
         return _rf_scalar_newton(nep, x, inner_solver, y, lam, dtype)
-    raise NotImplementedError(
-        "compute_rf through an InnerSolver object needs the projected-"
-        "problem layer, which the port does not have yet")
+    # an InnerSolver object: solve the 1 x 1 projected NEP
+    from .inner import inner_solve_rf
+
+    return inner_solve_rf(dtype, nep, x, inner_solver, y=y, target=target,
+                          lam=lam)

@@ -16,11 +16,13 @@ from ..config import real_of
 from ..core.errmeasure import estimate_error
 from ..core.exceptions import LostOrthogonalityException
 from ..core.nep import compute_Mlincomb
+from ..models.projection import create_proj_NEP
 from ..ops.linsolve import create_linsolver, lin_solve
 from ..ops.orth import DGKS, orthogonalize_and_normalize
 from .common import (NoConvergenceException, init_vec, scalar_as,
                      setup_solver, solver_device)
 from .iar import _progress
+from .inner import inner_solve
 
 __all__ = ["tiar"]
 
@@ -33,10 +35,6 @@ def tiar(nep, dtype=None, orthmethod=None, maxit=30, linsolvercreator=None,
     eigenvectors and the orthonormal factor of the basis (tensors on the
     device).  Raises :class:`NoConvergenceException` carrying the partial
     results when fewer than ``neigs`` pairs converge in ``maxit`` steps."""
-    if proj_solve:
-        raise NotImplementedError(
-            "tiar(proj_solve=True) needs the projected-problem and inner-"
-            "solver layers, which the port does not have yet")
     device = solver_device(nep, device)
     dtype, em, lg = setup_solver(nep, dtype, errmeasure, logger)
     if tol is None:
@@ -117,6 +115,17 @@ def tiar(nep, dtype=None, orthmethod=None, maxit=30, linsolvercreator=None,
             D, W = np.linalg.eig(H[:k, :k])
             Q = Z[:, :k] @ dev(a[0, :k, :k].T @ W)
             lams = sigma + gamma / D
+            if proj_solve:
+                # the Ritz values refined on the projection onto Z
+                pnep = create_proj_NEP(nep)
+                pnep.set_projectmatrices(Z[:, :k], Z[:, :k])
+                lproj, Qproj = inner_solve(
+                    inner_solver_method, dtype, pnep, lamv=lams.copy(),
+                    neigs=len(lams) + 3, sigma=sigma, tol=tol / 10,
+                    inner_logger=inner_logger)
+                II = np.argsort(np.abs(lproj - sigma))
+                lams = lproj[II]
+                Q = Z[:, :k] @ dev(Qproj[:, II])
             errs = np.array([float(estimate_error(em, lams[s], Q[:, s]))
                              for s in range(len(lams))])
             err_hist[k - 1, : len(lams)] = errs

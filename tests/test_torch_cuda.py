@@ -309,6 +309,33 @@ def test_scan_operand_reaches_the_kernel_without_a_copy(cuda):
 
 
 @pytest.mark.cuda
+def test_deflated_dep_applies_through_the_pair_kernel(cuda):
+    """A deflated delay problem's compute_Mlincomb on the card: its padded
+    DIA bank is one float64 pair launch, and the result equals the CPU
+    run's (the plain twin and the same factor terms)."""
+    import neptpu_torch
+
+    rng = np.random.default_rng(6)
+    v = rng.standard_normal(576) + 1j * rng.standard_normal(576)
+    V = rng.standard_normal((577, 2)) + 1j * rng.standard_normal((577, 2))
+    out = []
+    for dev in (cuda, CPU):
+        nep = neptpu_torch.nep_gallery("dep_symm_double", 24, device=dev)
+        dnep = neptpu_torch.deflate_eigpair(nep, -1.0,
+                                            torch.from_numpy(v).to(dev))
+        dia_kernel.DIA_SPMV.reset_counts()
+        out.append(neptpu_torch.compute_Mlincomb(
+            dnep, -1.0 + 0.01j, torch.from_numpy(V).to(dev),
+            np.array([1.0, 0.5])).cpu())
+        torch.cuda.synchronize()
+        if dev == cuda:
+            assert dia_kernel.DIA_SPMV.entry_counts[
+                "dia_lincomb_pair_f64"] == 1
+    assert dia_kernel.DIA_SPMV.launches == 0  # the CPU run launched nothing
+    assert rel_err(out[0].numpy(), out[1].numpy()) < 1e-12
+
+
+@pytest.mark.cuda
 def test_dep_scan_and_protocol_on_the_card(cuda):
     """A small delay problem on the card: one float32 pair launch per
     ``iar_real``/``tiar_real`` step, and the protocol solvers' Mlincomb

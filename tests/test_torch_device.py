@@ -78,6 +78,22 @@ def _calls(gun):
             DEP_CPU(), lam=-0.29, maxit=5, device=d)) for name in NEWTONS},
         "dep_shift_block_lu": lambda d: dep_shift_block_lu(
             DEP_CPU(), -0.2, dtype=torch.float64, device=d),
+        "jd_betcke": lambda d: _partial(neptpu_torch.jd_betcke)(
+            DEP_CPU(), neigs=1, maxit=3, device=d),
+        "jd_effenberger": lambda d: _partial(neptpu_torch.jd_effenberger)(
+            DEP_CPU(), maxit=3, device=d),
+        "nlar": lambda d: _partial(neptpu_torch.nlar)(
+            DEP_CPU(), neigs=1, maxit=3, device=d),
+        "mslp": lambda d: _partial(neptpu_torch.mslp)(
+            DEP_CPU(), maxit=2, device=d),
+        "sgiter": lambda d: _partial(neptpu_torch.sgiter)(
+            DEP_CPU(), 1, maxit=2, device=d),
+        **{name: (lambda d, name=name: _partial(getattr(neptpu_torch, name))(
+            DEP_CPU(), DEP_CPU(), lam=-0.29, maxit=2, device=d))
+           for name in ("rfi", "rfi_b")},
+        "LowRankFactorizedNEP": lambda d: neptpu_torch.LowRankFactorizedNEP(
+            [np.ones((9, 1))], [np.ones((9, 1))],
+            [neptpu_torch.matfun.eye_like], device=d),
     }
 
 
@@ -111,7 +127,9 @@ ENTRY_POINTS = ["nep_gallery_gun_like", "nep_gallery_waveguide", "PEP",
                 "iar_real_spmf", "iar_real_spmf_multishift",
                 "BatchedShiftSMW", "newton_refine_chip", "tiar_real_spmf",
                 "DEP", "iar_real", "tiar_real", "iar", "tiar",
-                "dep_shift_block_lu"] + NEWTONS + [
+                "dep_shift_block_lu", "jd_betcke", "jd_effenberger",
+                "nlar", "mslp", "sgiter", "rfi", "rfi_b",
+                "LowRankFactorizedNEP"] + NEWTONS + [
                     f"nep_gallery_{g}" for g in GALLERY_NAMES]
 
 
@@ -150,6 +168,16 @@ def test_resolve_device_prefers_the_callers_objects(gun):
     lams, Q = iar_real_spmf(nep, sigma=SMALL_SIGMA, gamma=600.0, maxit=4,
                             neigs=1, dtype=torch.float64, bank=bank)
     assert Q.shape[0] == nep.n
+    # problems built from a problem live where it does: a Chebyshev
+    # interpolant, a deflated and a projected problem of a CPU delay problem
+    dep = DEP_CPU()
+    assert neptpu_torch.ChebPEP(dep, 5).bank.device.type == "cpu"
+    dnep = neptpu_torch.deflate_eigpair(dep, -0.3, torch.ones(dep.n))
+    assert dnep.V0_t.device.type == "cpu"
+    assert dnep.spmf.nep1.bank.device.type == "cpu"
+    pnep = neptpu_torch.create_proj_NEP(dnep, 3)
+    pnep.set_projectmatrices(torch.eye(dnep.n, 2), torch.eye(dnep.n, 2))
+    assert pnep.W.device.type == "cpu" and pnep.bank.device.type == "cpu"
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA device"):
             config.default_device()

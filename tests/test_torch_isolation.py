@@ -25,11 +25,25 @@ import neptpu_torch.solvers.newton, neptpu_torch.solvers.iar_real
 import neptpu_torch.solvers.tiar_real, neptpu_torch.models.dep
 import neptpu_torch.models.gallery.msws, neptpu_torch.models.gallery.basic
 import neptpu_torch.models.gallery.examples
+import neptpu_torch.models.deflation, neptpu_torch.models.projection
+import neptpu_torch.models.lowrank, neptpu_torch.models.cheb
+import neptpu_torch.ops.eigsolve, neptpu_torch.solvers.inner
+import neptpu_torch.solvers.jd, neptpu_torch.solvers.nlar
+import neptpu_torch.solvers.companion, neptpu_torch.solvers.mslp
+import neptpu_torch.solvers.sgiter, neptpu_torch.solvers.rfi
 dep = neptpu_torch.nep_gallery('dep0_tridiag', 40, device='cpu')
 neptpu_torch.iar_real(dep, sigma=-0.2, maxit=8, neigs=1, device='cpu')
 neptpu_torch.tiar_real(dep, sigma=-0.2, maxit=8, neigs=1, device='cpu')
 neptpu_torch.resinv(neptpu_torch.nep_gallery('dep0', device='cpu'),
                     lam=-0.5, device='cpu')
+neptpu_torch.jd_effenberger(neptpu_torch.nep_gallery('dep0', device='cpu'),
+                            neigs=1, maxit=5, lam=-0.5, v=[1.0] * 5,
+                            tol=1e-8, device='cpu')
+neptpu_torch.nlar(neptpu_torch.nep_gallery('pep0', 40, device='cpu'),
+                  neigs=2, maxit=40, v=[1.0] * 40, num_restart_ritz_vecs=2,
+                  tol=1e-9, device='cpu')
+neptpu_torch.iar(dep, sigma=-0.2, maxit=20, neigs=1, proj_solve=True,
+                 check_error_every=5, device='cpu')
 for name in neptpu_torch.__all__:
     getattr(neptpu_torch, name)
 nep = neptpu_torch.nep_gallery('waveguide', nx=5, nz=3, neptype='SPMF',

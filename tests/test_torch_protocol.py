@@ -51,8 +51,13 @@ def test_krylov_protocol_solvers_report_partial_results(tridiag, name):
     with pytest.raises(neptpu_torch.NoConvergenceException) as exc:
         solver(tnep, sigma=-0.2, maxit=6, neigs=5, v=np.ones(64), device=CPU)
     assert len(exc.value.lam) == 5 and "maxit=6" in str(exc.value)
-    with pytest.raises(NotImplementedError, match="proj_solve"):
-        solver(tnep, proj_solve=True, device=CPU)
+    # proj_solve: the Ritz values refined on the projected problem are the
+    # JAX package's eigenvalues of the same problem
+    lp = solver(tnep, sigma=-0.2, maxit=20, neigs=2, v=np.ones(64),
+                proj_solve=True, check_error_every=5, device=CPU)[0]
+    lj = neptpu.iar(tridiag[1], sigma=-0.2, maxit=30, neigs=3,
+                    v=np.ones(64))[0]
+    assert len(lp) == 2 and conj_set_gap(lp, np.asarray(lj)) < 1e-9
     # a class is instantiated, an instance used, a callable called
     ref = solver(tnep, sigma=-0.2, maxit=20, neigs=2, v=np.ones(64),
                  device=CPU)[0]
