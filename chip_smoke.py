@@ -52,6 +52,16 @@ Phases, a few informative lines each (any failure exits non-zero):
    * wep_large (n = 13915, 4 shifts) at full size, the same way: >= 10
      distinct pairs at 1e-9;
    every scan step must launch the pair kernel at least once;
+   * spmf-deflated: the restarted scan with Effenberger deflation inside
+     the scan step (``iar_real_spmf_deflated``) on gun_like (float64: float32
+     overflows its T; maxit 30 a sweep, 10 pairs wanted, tol 1e-6; host
+     refinement: >= 4 distinct pairs at 1e-9, each within rel 1e-9 of the
+     pinned oracle) and on wep (float32, maxit 12, 6 pairs, tol 1e-5, the
+     first bench shift; chip refinement: >= 3 distinct pairs at 1e-9, each
+     matched to the main path's refined pairs or printed as new); at least
+     two sweeps converge pairs, no pair reconverges, one pair launch a scan
+     step; sweeps, max |T| per sweep and the host checks per sweep printed;
+     within 200 s;
    * dep (``dep_symm_double``, n = 1e4, delays 0 and 2), the protocol of
      ``benchmarks/time_to_tol.py``: float32 ``iar_real`` then ``tiar_real``
      at sigma = -1, all ``maxit`` Ritz pairs measured on the host in float64;
@@ -71,6 +81,13 @@ Phases, a few informative lines each (any failure exits non-zero):
      ``proj_solve=True`` (4 pairs each), every pair at backward error
      <= 1e-10 and within rel 1e-6 of float64 ``iar_real``'s eigenvalues,
      the deflating solvers' eigenvalues distinct, within 150 s;
+   * dep-krylov, the same problem through ``iar_chebyshev`` (``:DEP``,
+     shifted explicitly to sigma = -1), ``ilan`` (``proj_solve=True``),
+     ``infbilanczos`` (with the transposed problem), ``blocknewton`` (from
+     float64 ``iar_real``'s best three pairs) and ``broyden`` (at nside 40,
+     held against float64 ``iar_real`` there), every pair at backward error
+     <= 1e-10 and within rel 1e-6 of float64 ``iar_real``'s eigenvalues,
+     within 120 s;
 5. refine-chip: the gun_like candidates refined again on the card
    (``BatchedShiftSMW``: float32 factors + float64 iterative refinement)
    against the host backend: >= 10 distinct at 1e-9, eigenvalues within rel
@@ -127,6 +144,19 @@ MAX_HOST_FALLBACK = 2
 # the delay problem of benchmarks/time_to_tol.py:55-59 (dep_symm_double on
 # an nside x nside grid; sigma, maxit, pairs wanted, backward-error tolerance)
 DEP = dict(nside=100, sigma=-1.0, maxit=60, k=10, tol=1e-6)
+# [spmf-deflated]: the restarted scan with Effenberger deflation (maxit is
+# per sweep).  gun_like runs in float64: there gamma theta / |sigma - lam|
+# ~ 100, so max |T| ~ 100^maxit overflows float32 past maxit ~ 17 (7.8e59
+# at 30), and below that float32 sweeps converge nothing at 1e-6
+SPMF_DEFLATED = {
+    "gun_like": dict(maxit=30, neigs=10, tol=1e-6, need=4, dtype="float64",
+                     check_every=10),
+    "wep": dict(maxit=12, neigs=6, tol=1e-5, need=3, dtype="float32",
+                check_every=6)}
+# [dep-krylov]: the Krylov variants and the dense Newton solvers on the
+# float64 delay problem; broyden on a smaller grid (its restart takes a dense
+# eig of the (n + k)^2 bordered matrix on the host)
+KRYLOV = dict(broyden_nside=40, budget=120.0)
 DEVICE = "cuda"  # every phase runs on the card
 # published peaks of one H100 SXM (NVIDIA data sheet): the bounds' rates
 PEAK_BYTES_PER_S = 3.35e12
@@ -441,6 +471,7 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None):
     head_offs = (-w - 1, -w, -w + 1, -1, 0, 1, w - 1, w, w + 1)
     wm, wl = wep_bank_shape(WEP), wep_bank_shape(WEP_LARGE)
     dp = dep_bank_shape(DEP["nside"])
+    d40 = dep_bank_shape(KRYLOV["broyden_nside"])
     bf16 = torch.bfloat16
     # name, data (None: random) or dtype, offsets, n, m, tolerance (relative
     # to max |y|: a few roundings of the accumulator's dtype per row, sums
@@ -457,6 +488,11 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None):
          None, None, 1e-12, True),
         ("dep f32", torch.float32, dp[1], dp[2], dp[0], 1e-5, True),
         ("dep f64", torch.float64, dp[1], dp[2], dp[0], 1e-12, True),
+        # the shifted delay problem of iar_chebyshev (one more term) and
+        # broyden's smaller one
+        ("shifted dep f64", torch.float64, dp[1], dp[2], dp[0] + 1, 1e-12,
+         True),
+        ("dep40 f64", torch.float64, d40[1], d40[2], d40[0], 1e-12, True),
         ("headline bf16", bf16, head_offs, HEADLINE_N, HEADLINE_M, 1e-5, True),
         ("dep bf16", bf16, dp[1], dp[2], dp[0], 1e-5, True),
     ]
@@ -821,7 +857,7 @@ def run_time_to_tol(torch, dia_kernel, key, make_nep, sigma, gamma=1.0,
               f"stalled_at={['%.3e' % e for e in sorted(re_) if e >= tol_gate]} "
               f"t_refine={time.perf_counter() - t0:.3f} s", flush=True)
     return {"counts": counts, "entry": entry, "mats": mats, "fv": fv,
-            "backward": backward,
+            "backward": backward, "refined": lams[sel],
             "cand": cand, "t_scan": tsum("t_scan"),
             "t_check": tsum("t_check"), "k_done": k_done}
 
@@ -887,28 +923,16 @@ def dep_problem(nside):
     error of that script, and the float64 gallery problem."""
     from neptpu_torch import DEP, nep_gallery
     from neptpu_torch.ops.dia import DiaTermBank
-    from neptpu_torch.solvers.iar_real import _dep_host_resnorm
 
     nep0 = nep_gallery("dep_symm_double", nside, device=DEVICE)
     mats = nep0.bank.host_csr_terms()
     bank = DiaTermBank.from_matrices(mats, dtype=np.float32, device=DEVICE)
     nep = DEP(None, tauv=nep0.tauv, bank=bank)
-    fro = [float(np.sqrt((A.multiply(A.conj())).sum()).real) for A in mats]
-    taus = [float(t) for t in nep.tauv]
-    n = nep.n
 
     def backward_of(problem):
         """``time_to_tol.py:77-84``'s measure on ``problem``'s own operands
         (the float32-valued bank or the gallery's float64 one)."""
-        rn = _dep_host_resnorm(problem)
-
-        def backward(lam, q):
-            scale = abs(lam) * np.sqrt(n)
-            for t, f in zip(taus, fro):
-                scale += abs(np.exp(-t * lam)) * f
-            return rn(lam, q) / scale
-
-        return backward
+        return dep_backward(problem)[0]
 
     return nep, nep0, mats, backward_of
 
@@ -1122,7 +1146,7 @@ def phase_dep_protocol(torch, dia_kernel, cfg, dep):
           "MiB", flush=True)
     check(entry["dia_lincomb_pair_f64"] > 0,
           "dep-protocol: compute_Mlincomb launched no float64 pair kernel")
-    return entry, found
+    return entry, found, (np.asarray(l64), np.asarray(Q64), e64)
 
 
 def _separation(lams):
@@ -1277,6 +1301,263 @@ def phase_dep_deflation(torch, dia_kernel, cfg, dep, found):
     check(t_phase <= 150.0, f"dep-deflation took {t_phase:.1f} s (> 150 s)")
     return entry
 
+
+def phase_spmf_deflated(torch, dia_kernel, key, make_nep, sigma, gamma, cfg,
+                        refine_backend, tol_refine=1e-9, pinned=None,
+                        reference=None):
+    """The restarted SPMF scan with Effenberger deflation inside the scan
+    step (``iar_real_spmf_deflated``, in ``cfg["dtype"]``), its pairs
+    refined by ``newton_refine``.  Gates: at least two sweeps converge
+    pairs, the pairs are distinct (rel > 1e-7: no pair of a later sweep
+    reconverges an earlier one), each Ritz backward error <= the scan's
+    tolerance, one pair launch of the scan's dtype a scan step; after the refinement ``need`` distinct
+    pairs at backward error <= 1e-9, each within rel 1e-9 of ``pinned``
+    where given.  Against ``reference`` (the main path's refined pairs) each
+    refined pair is matched to rel 1e-7 or printed as new."""
+    from neptpu_torch.solvers.refine import newton_refine
+    from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
+                                                iar_real_spmf_deflated)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dia_kernel.DIA_SPMV.reset_counts()
+    t_start = time.perf_counter()
+    nep = make_nep()
+    mats, fv = collect_spmf_terms(nep)
+    backward = backward_errmeasure(mats, fv)
+    t_problem = time.perf_counter() - t_start
+    dt = getattr(torch, cfg["dtype"])
+    tol = cfg["tol"]
+    D, Q, info = iar_real_spmf_deflated(
+        nep, sigma=sigma, gamma=gamma, maxit=cfg["maxit"],
+        neigs=cfg["neigs"], tol=tol, check_error_every=cfg["check_every"],
+        dtype=dt,
+        return_info=True, device=DEVICE)
+    torch.cuda.synchronize()
+    t_scan_phase = time.perf_counter() - t_start - t_problem
+    entry = {k: v for k, v in dia_kernel.DIA_SPMV.entry_counts.items() if v}
+    errs0 = np.array([backward(complex(D[j]), Q[:, j])
+                      for j in range(len(D))])
+    sep = _separation(D)
+    t1 = time.perf_counter()
+    stats = {"chip_shifts": 0, "host_fallback_shifts": 0}
+    lams, _, errs = newton_refine(
+        mats, fv, D, Q, backend=refine_backend, stats=stats, nsweeps=3,
+        tol=tol_refine, errmeasure=backward, dtype=torch.float32, ir=3,
+        shift_rel=1e-8, target_distinct=len(D), device=DEVICE)
+    t_refine = time.perf_counter() - t1
+    sel = distinct_below_tol(lams, errs, 1e-9)
+    wall = time.perf_counter() - t_start
+    steps = sum(info["k_done_sweeps"])
+    print(f"[spmf-deflated] {key} n={nep.n} terms={len(fv)} sigma={sigma} "
+          f"gamma={gamma} maxit/sweep={info['m_per_sweep']} neigs="
+          f"{cfg['neigs']} tol={tol:.3e} {cfg['dtype']}: sweeps="
+          f"{info['sweeps']} "
+          f"(steps {info['k_done_sweeps']}) nconv={info['nconv']} theta="
+          f"{info['theta']:.6e} max|T| per sweep "
+          f"{['%.3e' % t for t in info['max_abs_T']]}; Ritz backward errors "
+          f"max {max(errs0, default=np.nan):.3e}, smallest rel separation "
+          f"{sep:.3e}; eigenvalues {np.array2string(D, precision=8)}",
+          flush=True)
+    print(f"[spmf-deflated] {key} t_problem={t_problem:.3f} s "
+          f"bank+factorize+scans={t_scan_phase:.3f} s (t_factorize="
+          f"{info['t_factorize']:.3f} s t_scan={info['t_scan']:.3f} s, host "
+          f"checks t_check={info['t_check']:.3f} s, per sweep "
+          f"{['%.3f' % t for t in info['t_check_sweeps']]}) refine="
+          f"{refine_backend} t_refine={t_refine:.3f} s wall={wall:.3f} s; "
+          f"refined distinct<=1e-9={len(sel)} max_backward="
+          f"{max(errs[sel]) if sel else float('nan'):.3e}; launches {entry} "
+          f"in {steps} scan steps; peak_device_mem "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    check(bool(np.isfinite(D).all() and np.isfinite(errs0).all()
+               and np.isfinite(lams).all()),
+          f"spmf-deflated {key}: non-finite pairs")
+    check(sum(1 for c in info["sweeps"] if c) >= 2,
+          f"spmf-deflated {key}: sweeps {info['sweeps']} (need >= 2 that "
+          "converge pairs)")
+    check(sep > 1e-7, f"spmf-deflated {key}: pairs within rel {sep:.3e} of "
+                      "each other (a converged pair reconverged)")
+    check(errs0.max() <= tol, f"spmf-deflated {key}: Ritz backward error "
+                              f"{errs0.max():.3e} above tol {tol:.3e}")
+    pair_entry = f"dia_lincomb_pair_f{cfg['dtype'][-2:]}"
+    check(entry.get(pair_entry, 0) >= steps,
+          f"spmf-deflated {key}: {steps} scan steps launched {entry}")
+    check(len(sel) >= cfg["need"],
+          f"spmf-deflated {key}: {len(sel)} refined distinct pairs at "
+          f"backward error <= 1e-9 (need {cfg['need']})")
+    if pinned is not None:
+        gaps = [float(np.min(np.abs(pinned - lams[j])) / abs(lams[j]))
+                for j in sel]
+        print(f"[spmf-deflated] {key} refined pairs vs the pinned oracle: "
+              f"max rel gap {max(gaps):.3e} (gate 1e-9)", flush=True)
+        check(max(gaps) <= 1e-9, f"spmf-deflated {key}: a refined pair lies "
+                                 f"rel {max(gaps):.3e} from the pinned oracle")
+    if reference is not None:
+        ref = np.asarray(reference)
+        new = [lams[j] for j in sel
+               if np.min(np.abs(ref - lams[j])) / abs(lams[j]) > 1e-7]
+        print(f"[spmf-deflated] {key} refined pairs within rel 1e-7 of the "
+              f"main path's: {len(sel) - len(new)} of {len(sel)}; new: "
+              f"{np.array2string(np.asarray(new), precision=10)}", flush=True)
+    if refine_backend == "chip":
+        check(stats["host_fallback_shifts"] <= MAX_HOST_FALLBACK,
+              f"spmf-deflated {key}: {stats['host_fallback_shifts']} "
+              "refinement shifts fell back to the host")
+    return {"entry": dict(dia_kernel.DIA_SPMV.entry_counts), "wall": wall}
+
+
+def dep_backward(nep):
+    """``(backward, scale)``: ``benchmarks/time_to_tol.py``'s backward error
+    on a delay problem's own operands (any vector, normalised here) and the
+    scale ``|lam| sqrt(n) + sum_i |exp(-tau_i lam)| ||A_i||_F`` it divides
+    by."""
+    from neptpu_torch.solvers.iar_real import _dep_host_resnorm
+
+    fro = [float(np.sqrt((A.multiply(A.conj())).sum()).real)
+           for A in nep.bank.host_csr_terms()]
+    rn = _dep_host_resnorm(nep)
+
+    def scale(lam):
+        return abs(lam) * np.sqrt(nep.n) + sum(
+            abs(np.exp(-t * lam)) * f for t, f in zip(nep.tauv, fro))
+
+    def backward(lam, q):
+        q = np.asarray(q) / np.linalg.norm(q)
+        return rn(lam, q) / scale(lam)
+
+    return backward, scale
+
+
+def phase_dep_krylov(torch, dia_kernel, cfg, dep, found, pairs64):
+    """The Krylov variants and the dense Newton solvers on the float64
+    delay problem of ``[dep-protocol]`` (n = 1e4), complex128:
+    ``iar_chebyshev`` in ``:DEP`` mode at sigma = -1 (the problem shifted
+    explicitly: one more delay-free term in its DIA bank),
+    ``ilan`` (``proj_solve=True``), ``infbilanczos`` (the transposed problem
+    built as the transpose), ``blocknewton`` from float64 ``iar_real``'s
+    best three pairs (X orthonormalised, S = diag(lam), ``armijo_factor=
+    0.5``), and ``broyden`` at nside 40 (its restart's dense eig of the
+    bordered (n + k)^2 matrix runs on the host; its start ``M(sigma)``
+    exactly, and a seeded random normalisation vector ``c``: with ``c`` all
+    ones ``c^H v = 1`` makes the oscillating eigenvectors of this problem
+    huge, and the step threshold 0.2 stalls the iteration at sigma).  Every
+    pair at backward error <= 1e-10 and within rel 1e-6 of float64
+    ``iar_real``'s eigenvalues (at nside 40 for ``broyden``)."""
+    import warnings
+
+    from neptpu_torch import (DEP, Logger, NoConvergenceException,
+                              blocknewton, broyden, iar_chebyshev, iar_real,
+                              ilan, infbilanczos, nep_gallery)
+
+    class Iterations(Logger):
+        last = 0
+
+        def iteration(self, iter_idx, errs=None, lams=None, level=1):
+            Iterations.last = max(Iterations.last, int(iter_idx))
+
+    class Steps(Logger):
+        """Counts broyden's inner iterations over all its pairs."""
+        total = 0
+
+        def iteration(self, iter_idx, errs=None, lams=None, level=1):
+            Steps.total += 1
+
+    nep, sigma = dep["nep0"], cfg["sigma"]
+    n = nep.n
+    backward, scale_at = dep_backward(nep)
+    scale = scale_at(sigma)
+    l64, Q64, e64 = pairs64
+    best = np.argsort(e64)[:3]
+    X0, _ = np.linalg.qr(Q64[:, best])
+    S0 = np.diag(np.asarray(l64)[best])
+    mats = nep.bank.host_csr_terms()
+    t_phase = time.perf_counter()
+    nep40 = nep_gallery("dep_symm_double", KRYLOV["broyden_nside"],
+                        device=DEVICE)
+    backward40, scale40_at = dep_backward(nep40)
+    l40, Q40 = iar_real(nep40, sigma=sigma, maxit=60, neigs=60, tol=np.inf,
+                        dtype=torch.float64, device=DEVICE)
+    e40 = np.array([backward40(complex(x), Q40[:, i])
+                    for i, x in enumerate(l40)])
+    found40 = np.asarray(l40)[e40 < 1e-12]
+    nept = DEP([A.T.tocsr() for A in mats], nep.tauv, device=DEVICE)
+    c40 = np.random.default_rng(0).standard_normal(nep40.n)
+
+    def eig_pairs(S, X):
+        lam, Z = np.linalg.eig(S)
+        return lam, (X @ torch.as_tensor(Z, device=X.device)).cpu().numpy()
+
+    runs = [
+        ("iar_chebyshev", nep, backward, found, lambda: iar_chebyshev(
+            nep, sigma=sigma, compute_y0_method=":DEP", maxit=30, neigs=4,
+            tol=1e-11 * scale, v=np.ones(n), logger=Iterations(),
+            device=DEVICE)),
+        ("ilan", nep, backward, found, lambda: ilan(
+            nep, sigma=sigma, maxit=40, neigs=2, tol=1e-10, proj_solve=True,
+            check_error_every=10, v=np.ones(n), logger=Iterations(),
+            device=DEVICE)[:2]),
+        ("infbilanczos", nep, backward, found, lambda: infbilanczos(
+            nep, nept, sigma=sigma, maxit=40, neigs=3, tol=1e-10,
+            v=np.ones(n), u=np.ones(n), logger=Iterations(),
+            device=DEVICE)[:2]),
+        ("blocknewton", nep, backward, found, lambda: eig_pairs(*blocknewton(
+            nep, S=S0, X=X0, armijo_factor=0.5, tol=1e-12 * scale, maxit=20,
+            logger=Iterations(), device=DEVICE))),
+        ("broyden", nep40, backward40, found40, lambda: eig_pairs(*broyden(
+            nep40, sigma=sigma, approxnep=nep40, pmax=3,
+            tol=1e-12 * scale40_at(sigma), c=c40, inner_logger=Steps(),
+            device=DEVICE))),
+    ]
+    print(f"[dep-krylov] dep_symm_double n={n} float64, complex128, sigma="
+          f"{sigma}: scale {scale:.6e}; broyden at nside "
+          f"{KRYLOV['broyden_nside']} (n={nep40.n}), float64 iar_real there "
+          f"{len(found40)} pairs at backward error < 1e-12", flush=True)
+    out = {}
+    for name, problem, bw, pool, run in runs:
+        Iterations.last = Steps.total = 0
+        before = dict(dia_kernel.DIA_SPMV.entry_counts)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            try:
+                lams, V = run()
+            except NoConvergenceException as e:
+                raise SmokeFailure(f"dep-krylov {name}: {e}; partial "
+                                   f"eigenvalues {np.asarray(e.lam)}")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        lams = np.asarray(lams)
+        V = V.cpu().numpy() if hasattr(V, "cpu") else np.asarray(V)
+        launched = {k: v - before[k] for k, v in
+                    dia_kernel.DIA_SPMV.entry_counts.items() if v > before[k]}
+        errs = [bw(complex(x), V[:, i]) for i, x in enumerate(lams)]
+        gaps = [_conj_gap(x, pool) for x in lams]
+        its = Steps.total if name == "broyden" else Iterations.last
+        print(f"[dep-krylov] {name}: {len(lams)} pairs "
+              f"{np.array2string(lams, precision=10)} in {seconds:.3f} s, "
+              f"iterations {its}, launches {launched}, peak_device_mem "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; max "
+              f"backward error {max(errs):.3e} (gate 1e-10), max rel gap to "
+              f"float64 iar_real's eigenvalues {max(gaps):.3e} (gate 1e-6)"
+              + "".join(f"; warned: {w.message}" for w in caught
+                        if "shifted and scaled" in str(w.message)),
+              flush=True)
+        check(len(lams) > 0 and max(errs) <= 1e-10 and max(gaps) <= 1e-6,
+              f"dep-krylov {name}: {len(lams)} pairs, backward error "
+              f"{max(errs, default=np.nan):.3e}, gap "
+              f"{max(gaps, default=np.nan):.3e}")
+        if name != "blocknewton":  # (its residuals go through compute_MM)
+            check(launched.get("dia_lincomb_pair_f64", 0) > 0,
+                  f"dep-krylov {name}: no float64 pair launch ({launched})")
+        out[name] = launched
+    t_phase = time.perf_counter() - t_phase
+    print(f"[dep-krylov] phase {t_phase:.3f} s (budget "
+          f"{KRYLOV['budget']:g} s)", flush=True)
+    check(t_phase <= KRYLOV["budget"],
+          f"dep-krylov took {t_phase:.1f} s (> {KRYLOV['budget']:g} s)")
+    return out
 
 
 def phase_refine_chip(torch, gun):
@@ -1496,18 +1777,47 @@ def main():
         maxit=60, neigs=10, tol=1e-6, tol_refine=1e-11,
         pinned=GUN_LIKE_PINNED)
     paths["gun_like"] = gun["entry"]
+    wep_refined = None
     for key, cfg in (("wep", WEP), ("wep_large", WEP_LARGE)):
         wep = phase_wep(torch, dia_kernel, key, cfg)
         paths[key] = wep["entry"]
         phase_wep_bank_share(torch, key, cfg, wep)
+        if key == "wep":
+            wep_refined = wep["refined"]
         del wep
+    # the restarted scan with deflation inside the step, on gun_like and wep
+    deflated = [
+        phase_spmf_deflated(
+            torch, dia_kernel, "gun_like",
+            lambda: nep_gallery("gun_like", device=DEVICE), SIGMA, GAMMA,
+            SPMF_DEFLATED["gun_like"], "host", tol_refine=1e-11,
+            pinned=GUN_LIKE_PINNED),
+        phase_spmf_deflated(
+            torch, dia_kernel, "wep", lambda: wep_nep(WEP), WEP["sigmas"][0],
+            1.0, SPMF_DEFLATED["wep"], "chip", reference=wep_refined)]
+    for key, out in zip(("gun_like", "wep"), deflated):
+        paths[f"spmf-deflated {key}"] = out["entry"]
+    t_deflated = sum(out["wall"] for out in deflated)
+    print(f"[spmf-deflated] phase {t_deflated:.3f} s (budget 200 s)",
+          flush=True)
+    check(t_deflated <= 200.0,
+          f"spmf-deflated took {t_deflated:.1f} s (> 200 s)")
     dep = phase_dep(torch, dia_kernel, DEP)
     for key, entry in dep["entry"].items():
         paths[f"dep {key}"] = entry
-    paths["dep-protocol"], found = phase_dep_protocol(torch, dia_kernel, DEP,
-                                                      dep)
+    paths["dep-protocol"], found, pairs64 = phase_dep_protocol(
+        torch, dia_kernel, DEP, dep)
     paths["dep-deflation"] = phase_dep_deflation(torch, dia_kernel, DEP, dep,
                                                  found)
+    # the Krylov variants and dense Newton solvers: iar_chebyshev's shifted
+    # problem has one more term, broyden's a smaller grid, so their launches
+    # are kept apart from the delay problem's shape
+    krylov = phase_dep_krylov(torch, dia_kernel, DEP, dep, found, pairs64)
+    for name, launched in krylov.items():
+        prefix = {"iar_chebyshev": "shifted-dep",
+                  "broyden": "dep40"}.get(name, "dep-krylov")
+        paths[f"{prefix} {name}"] = {
+            k: launched.get(k, 0) for k in dia_kernel.DIA_SPMV.entry_counts}
     del dep
     phase_refine_chip(torch, gun)
     if args.profile:
@@ -1527,7 +1837,8 @@ def main():
         return {k: sum(c[e] for e in entries) for k, c in paths.items()
                 if k.startswith(on)}
 
-    every = ("spmv", "gun_like", "wep", "dep")
+    every = ("spmv", "gun_like", "wep", "dep", "spmf-deflated",
+             "shifted-dep")
     f3264 = ("_f32", "_f64")
     # name, kernel-check row, C entry points, main paths that hand the kernel
     # this shape: first each wrapper at the shape of its busiest path (the
@@ -1544,7 +1855,13 @@ def main():
          ["dia_lincomb_pair_f32"], ("dep",)),
         ("dia_lincomb_f64@dep", "dep f64", ["dia_lincomb_f64"], ("dep",)),
         ("dia_lincomb_pair_f64@dep", "dep f64 pair",
-         ["dia_lincomb_pair_f64"], ("dep",)),
+         ["dia_lincomb_pair_f64"], ("dep ", "dep-")),
+        ("dia_lincomb_pair_f64@gun_like", "gun_like f64 pair",
+         ["dia_lincomb_pair_f64"], ("spmf-deflated gun_like",)),
+        ("dia_lincomb_pair_f64@shifted_dep", "shifted dep f64 pair",
+         ["dia_lincomb_pair_f64"], ("shifted-dep",)),
+        ("dia_lincomb_pair_f64@dep40", "dep40 f64 pair",
+         ["dia_lincomb_pair_f64"], ("dep40",)),
         ("dia_lincomb_bf16", "headline bf16", ["dia_lincomb_bf16"],
          ("spmv",)),
         ("dia_lincomb_pair_bf16", "headline bf16 pair",

@@ -22,7 +22,14 @@ paths and names:
   storage plus low-rank factor terms) and projection (``create_proj_NEP``),
   the inner solvers on projected problems (``inner_solve``) and the
   projection solvers built on them (``jd_betcke``, ``jd_effenberger``,
-  ``nlar``, and ``iar``/``tiar`` with ``proj_solve=True``).
+  ``nlar``, and ``iar``/``tiar`` with ``proj_solve=True``);
+* the restarted SPMF scan with Effenberger deflation inside the scan step
+  (``iar_real_spmf_deflated``, ``DeflationOps``), the Krylov variants
+  (``iar_chebyshev``, ``ilan``, ``infbilanczos``), the dense Newton solvers
+  for invariant pairs (``blocknewton``, ``broyden``), the problem
+  transformations (``shift_and_scale``, ``mobius_transform``,
+  ``taylor_expansion_pep``), ``DerSPMF``, the function-handle problems and
+  ``interpolate_pep``.
 
 It imports torch, numpy and scipy — never jax or neptpu.  Entry points run on
 the card unless the caller passes ``device="cpu"``
@@ -38,19 +45,25 @@ from .core.logger import (ErrorLogger, Logger, PrintLogger, push_info,
                           push_iteration_info)
 from .core.nep import (NEP, compute_Mder, compute_Mlincomb, compute_MM,
                        compute_resnorm)
+from .core.nep import mder_from_mm as compute_Mder_from_MM
+from .core.nep import mlincomb_from_mder as compute_Mlincomb_from_Mder
+from .core.nep import mlincomb_from_mm as compute_Mlincomb_from_MM
 from .models.cheb import ChebPEP
 from .models.deflation import (DeflatedGenericNEP, DeflatedNEP,
                                DeflatedNEPMM, DeflatedSPMF, deflate_eigpair,
                                get_deflated_eigpairs)
 from .models.dep import DEP
+from .models.derspmf import DerSPMF
 from .models.gallery import nep_gallery
+from .models.gallery.waveguide import wep_gallery
+from .models.helpers import REP, Mder_Mlincomb_NEP, Mder_NEP
 from .models.lowrank import LowRankFactorizedNEP, LowRankMatrixAndFunction
-from .models.pep import PEP
+from .models.pep import PEP, interpolate_pep
 from .models.projection import (Proj_NEP, Proj_SPMF_NEP, create_proj_NEP,
                                 expand_projectmatrices, set_projectmatrices)
 from .models.spmf import AbstractSPMF, SPMF_NEP
 from .models.sumnep import GenericSumNEP, SPMFSumNEP, SumNEP
-from .ops import matfun
+from .ops import matfun, sparse
 from .ops.eigsolve import (ArnoldiEigSolver, DefaultEigSolver,
                            EigenEigSolver, EigSolver, eig_solve)
 from .ops.linsolve import (BackslashLinSolver, BackslashLinSolverCreator,
@@ -63,9 +76,15 @@ from .ops.linsolve import (BackslashLinSolver, BackslashLinSolverCreator,
                            lin_solve)
 from .ops.orth import (DGKS, ClassicalGS, ModifiedGS,
                        orthogonalize_and_normalize)
+from .solvers.blocknewton import blocknewton
+from .solvers.broyden import broyden
 from .solvers.companion import companion, polyeig
 from .solvers.iar import iar
-from .solvers.iar_real import dep_shift_block_lu, iar_real, iar_real_scan
+from .solvers.iar_chebyshev import iar_chebyshev
+from .solvers.iar_real import (DeflationOps, dep_shift_block_lu, iar_real,
+                               iar_real_scan)
+from .solvers.ilan import ilan
+from .solvers.infbilanczos import infbilanczos
 from .solvers.inner import (ContourBeynInnerSolver, DefaultInnerSolver,
                             IARChebInnerSolver, IARInnerSolver, InnerSolver,
                             NewtonInnerSolver, NleigsInnerSolver,
@@ -81,11 +100,27 @@ from .solvers.refine import newton_refine, resinv_refine
 from .solvers.rf import compute_rf
 from .solvers.rfi import rfi, rfi_b
 from .solvers.sgiter import sgiter
-from .solvers.spmf_real import iar_real_spmf, iar_real_spmf_multishift
+from .solvers.spmf_real import (iar_real_spmf, iar_real_spmf_deflated,
+                                iar_real_spmf_multishift)
 from .solvers.tiar import tiar
 from .solvers.tiar_real import tiar_real, tiar_real_scan, tiar_real_spmf
+from .transforms import (MobiusTransformedNEP, ShiftScaledNEP,
+                         mobius_transform, shift_and_scale,
+                         taylor_expansion_pep)
 
 jd = jd_betcke
+interpolate = interpolate_pep  # the reference's name
+
+
+def get_Av(nep):
+    """The SPMF term matrices of ``nep``."""
+    return nep.get_Av()
+
+
+def get_fv(nep):
+    """The SPMF term functions of ``nep``."""
+    return nep.get_fv()
+
 
 __all__ = [
     "NEP",
@@ -195,4 +230,29 @@ __all__ = [
     "jd_betcke",
     "jd_effenberger",
     "jd",
+    "compute_Mder_from_MM",
+    "compute_Mlincomb_from_MM",
+    "compute_Mlincomb_from_Mder",
+    "get_Av",
+    "get_fv",
+    "wep_gallery",
+    "sparse",
+    "DeflationOps",
+    "iar_real_spmf_deflated",
+    "DerSPMF",
+    "Mder_NEP",
+    "Mder_Mlincomb_NEP",
+    "REP",
+    "interpolate_pep",
+    "interpolate",
+    "shift_and_scale",
+    "mobius_transform",
+    "taylor_expansion_pep",
+    "ShiftScaledNEP",
+    "MobiusTransformedNEP",
+    "iar_chebyshev",
+    "ilan",
+    "infbilanczos",
+    "blocknewton",
+    "broyden",
 ]

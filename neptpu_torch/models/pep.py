@@ -15,7 +15,7 @@ from ..ops import matfun
 from ..ops.sparse import make_term_bank
 from .spmf import AbstractSPMF, _bank_lincomb
 
-__all__ = ["PEP"]
+__all__ = ["PEP", "interpolate_pep"]
 
 
 def _falling(d: int, j: int) -> float:
@@ -98,3 +98,30 @@ class PEP(AbstractSPMF):
             P = P @ S
             F.append(P)
         return self.bank.mm_apply(V, torch.stack(F))
+
+
+def interpolate_pep(nep, points, device=None):
+    """Interpolate any NEP at ``points`` into a PEP of degree
+    ``len(points) - 1``: the Vandermonde system solved entrywise over the
+    stacked ``Mder(lam_j)`` (on the host, complex128; a real result where
+    every coefficient is real).  ``device``: where the PEP's bank lives
+    (default: the original problem's device, else the card)."""
+    from ..solvers.common import nep_device
+
+    if device is None:
+        device = nep_device(nep)
+    pts = np.asarray(points)
+    d = len(pts) - 1
+    Ms = []
+    for p in pts:
+        M = nep.Mder_dense(p) if hasattr(nep, "Mder_dense") else nep.Mder(p)
+        M = M if isinstance(M, torch.Tensor) else M.to_dense()
+        Ms.append(M.detach().cpu().numpy())
+    V = np.vander(pts, d + 1, increasing=True)  # (d+1, d+1)
+    stacked = np.stack([M.reshape(-1) for M in Ms])  # (d+1, n*n)
+    coeffs = np.linalg.solve(V, stacked)
+    n = Ms[0].shape[0]
+    A = [coeffs[i].reshape(n, n) for i in range(d + 1)]
+    if not any(np.iscomplexobj(a) and np.abs(a.imag).max() > 0 for a in A):
+        A = [a.real for a in A]
+    return PEP(A, device=device)

@@ -142,46 +142,99 @@ class BackslashLinSolver(LinSolver):
         return torch.linalg.solve(self.A.to(dt), b.to(dt))
 
 
+def _safe_normalize(x, thresh=None):
+    """``(x / ||x||, ||x||)``, or ``(0, 0)`` where ``||x|| <= thresh``
+    (default: the dtype's eps)."""
+    norm = float(torch.linalg.vector_norm(x))
+    if thresh is None:
+        thresh = float(torch.finfo(x.dtype).eps)
+    if norm > thresh:
+        return x / norm, norm
+    return torch.zeros_like(x), 0.0
+
+
+def _givens(a, b):
+    """``(cs, sn)`` of the rotation that zeroes ``b`` under ``a``."""
+    if abs(b) == 0:
+        return 1.0, 0.0
+    if abs(a) < abs(b):
+        t = -a / b
+        r = 1.0 / np.sqrt(1.0 + abs(t) ** 2)
+        return r * t, r
+    t = -b / a
+    r = 1.0 / np.sqrt(1.0 + abs(t) ** 2)
+    return r, r * t
+
+
+def _rotate(h, i, cs, sn):
+    x1, y1 = h[i], h[i + 1]
+    h[i] = np.conj(cs) * x1 - np.conj(sn) * y1
+    h[i + 1] = sn * x1 + cs * y1
+
+
 def gmres(matvec, b, x0=None, tol=1e-12, restart=50, maxiter=200, M=None):
-    """Matrix-free restarted GMRES on the device of ``b``: modified
-    Gram-Schmidt Arnoldi, the small least-squares problem solved per inner
-    step.  Stops at ``||b - A x|| <= tol ||b||`` or after ``maxiter``
-    restarts; ``M``: optional right-hand-side preconditioner ``v -> M v``
-    (left preconditioning)."""
+    """Matrix-free restarted GMRES on the device of ``b``, the algorithm of
+    ``jax.scipy.sparse.linalg.gmres(solve_method="incremental")`` step for
+    step: one classical Gram-Schmidt pass per Arnoldi step, the small
+    least-squares problem kept in QR form by Givens rotations.
+
+    ``M``: optional preconditioner ``v -> M v`` (left preconditioning).
+    The stop rules are JAX's: the restarts end once ``||M (b - A x)|| <=
+    tol ||b||`` (or after ``maxiter`` restarts), a restart ends once its
+    rotated residual is ``<= tol ||M b||`` - so with a preconditioner far
+    from the identity the iterate meets its tolerance in the preconditioned
+    norm, not in ``||b - A x||``."""
     pre = (lambda v: v) if M is None else M
     x = torch.zeros_like(b) if x0 is None else x0.to(b.dtype)
-    bnorm = float(torch.linalg.vector_norm(pre(b)))
-    if bnorm == 0.0:
-        return x
     n = b.shape[0]
     restart = min(int(restart), n)
+    bnorm = float(torch.linalg.vector_norm(b))
+    atol = tol * bnorm
+    ptol = float(torch.linalg.vector_norm(pre(b))) * min(
+        1.0, atol / bnorm if bnorm > 0 else np.inf)
+    eps = float(torch.finfo(b.dtype).eps)
+    hdt = np.complex128 if b.dtype.is_complex else np.float64
+    unit, rnorm = _safe_normalize(pre(b - matvec(x)))
     for _ in range(int(maxiter)):
-        r = pre(b - matvec(x))
-        beta = float(torch.linalg.vector_norm(r))
-        if beta <= tol * bnorm:
+        if not rnorm > atol:
             break
-        Q = torch.zeros((n, restart + 1), dtype=b.dtype, device=b.device)
-        H = torch.zeros((restart + 1, restart), dtype=b.dtype)
-        Q[:, 0] = r / beta
-        e1 = torch.zeros(restart + 1, dtype=b.dtype)
-        e1[0] = beta
-        y, k = None, 0
-        for k in range(1, restart + 1):
-            w = pre(matvec(Q[:, k - 1]))
-            for j in range(k):
-                hj = torch.vdot(Q[:, j], w)
-                w = w - hj * Q[:, j]
-                H[j, k - 1] = hj
-            hk = float(torch.linalg.vector_norm(w))
-            H[k, k - 1] = hk
-            y = torch.linalg.lstsq(H[:k + 1, :k], e1[:k + 1, None]).solution
-            res = float(torch.linalg.vector_norm(
-                H[:k + 1, :k] @ y - e1[:k + 1, None]))
-            if hk == 0.0 or res <= tol * bnorm:
-                break
-            Q[:, k] = w / hk
-        x = x + Q[:, :k] @ y[:, 0].to(b.device)
+        V = torch.zeros((n, restart + 1), dtype=b.dtype, device=b.device)
+        V[:, 0] = unit
+        R = np.eye(restart, restart + 1, dtype=hdt)
+        givens = np.zeros((restart, 2), dtype=hdt)
+        beta = np.zeros(restart + 1, dtype=hdt)
+        beta[0] = rnorm
+        k, err = 0, rnorm
+        while k < restart and err > ptol:
+            v = pre(matvec(V[:, k]))
+            _, v0 = _safe_normalize(v)
+            h = V.conj().T @ v
+            v = v - V @ h
+            v, v1 = _safe_normalize(v, thresh=eps * v0)
+            V[:, k + 1] = v
+            row = h.cpu().numpy().astype(hdt)
+            row[k + 1] = v1
+            for i in range(k):
+                _rotate(row, i, *givens[i])
+            givens[k] = _givens(row[k], row[k + 1])
+            _rotate(row, k, *givens[k])
+            R[k] = row
+            _rotate(beta, k, *givens[k])
+            err = abs(beta[k + 1])
+            k += 1
+        # the whole restart-size triangle, as JAX solves it: rows past k are
+        # identity rows, so y[k] picks up the last rotated residual
+        y = _solve_upper(R[:, :-1].T, beta[:-1])
+        x = x + V[:, :-1] @ torch.as_tensor(y, dtype=b.dtype, device=b.device)
+        unit, rnorm = _safe_normalize(pre(b - matvec(x)))
     return x
+
+
+def _solve_upper(A, b):
+    """Upper-triangular solve on the host."""
+    import scipy.linalg as sla
+
+    return sla.solve_triangular(A, b, lower=False)
 
 
 class GMRESLinSolver(LinSolver):

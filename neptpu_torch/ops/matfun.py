@@ -21,7 +21,12 @@ __all__ = [
     "with_derivs",
     "eye_like",
     "expm",
+    "inv",
     "sqrtm",
+    "sinm",
+    "cosm",
+    "sinhm",
+    "coshm",
     "ramp",
     "jordan_matrix",
     "deriv_weights",
@@ -68,6 +73,54 @@ def expm(S):
     if S.ndim == 0:
         return torch.exp(S)
     return torch.linalg.matrix_exp(S)
+
+
+def inv(S):
+    """Matrix inverse (scalar-safe)."""
+    if S.ndim == 0:
+        return 1.0 / S
+    return torch.linalg.inv(S)
+
+
+def _trig_parts(S):
+    """``(expm(iS), expm(-iS))`` in the complex dtype of ``S``."""
+    Sc = S.to(torch.promote_types(S.dtype, torch.complex64))
+    return torch.linalg.matrix_exp(1j * Sc), torch.linalg.matrix_exp(-1j * Sc)
+
+
+def _real_like(R, S):
+    """A real ``S`` gets the real part of ``R`` back in its own dtype."""
+    return R.real.to(S.dtype) if S.dtype.is_floating_point else R
+
+
+def sinm(S):
+    """Matrix sine (scalar-safe)."""
+    if S.ndim == 0:
+        return torch.sin(S)
+    E, Em = _trig_parts(S)
+    return _real_like((E - Em) / 2j, S)
+
+
+def cosm(S):
+    """Matrix cosine (scalar-safe)."""
+    if S.ndim == 0:
+        return torch.cos(S)
+    E, Em = _trig_parts(S)
+    return _real_like((E + Em) / 2, S)
+
+
+def sinhm(S):
+    """Matrix hyperbolic sine (scalar-safe)."""
+    if S.ndim == 0:
+        return torch.sinh(S)
+    return (torch.linalg.matrix_exp(S) - torch.linalg.matrix_exp(-S)) / 2
+
+
+def coshm(S):
+    """Matrix hyperbolic cosine (scalar-safe)."""
+    if S.ndim == 0:
+        return torch.cosh(S)
+    return (torch.linalg.matrix_exp(S) + torch.linalg.matrix_exp(-S)) / 2
 
 
 def sqrtm(S, iters: int = 40):

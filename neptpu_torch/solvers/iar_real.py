@@ -36,7 +36,7 @@ from .common import solver_device
 
 __all__ = ["iar_real", "iar_real_scan", "run_iar_real", "dep_shift_block_lu",
            "dep_coeff_table", "block_assemble_lu", "DenseBlockLU",
-           "as_pair_solver", "auto_theta", "apply_theta"]
+           "as_pair_solver", "auto_theta", "apply_theta", "DeflationOps"]
 
 
 def _dep_host_resnorm(nep):
@@ -138,13 +138,102 @@ def as_pair_solver(lu_piv):
     return DenseBlockLU(*lu_piv)
 
 
-def _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled, inv_theta):
+class DeflationOps:
+    """Scan operands of an Effenberger invariant pair (X, S) for the
+    theta-scaled complex-as-real IAR.
+
+    The extended problem ``Mtil(lam)[v; w] = [M v + M X (lam I - S)^{-1} w;
+    X^H v]`` enters the scan through three precomputed pieces, each built in
+    complex128 on the host and held as re/im parts on the scan's device in
+    its dtype:
+
+    * ``T``: the block-Toeplitz ``((m+1)p, (m+1)p)`` map from the stacked
+      w-blocks to ``t_l = sum_k (-gamma theta)^k R^{k+1} w_{l+k}``,
+      ``R = (sigma I - S)^{-1}`` - so the step's bank contraction is the
+      ordinary one (length n, the bank's own shape) on
+      ``v'_l = v_l + X t_l``;
+    * ``X``: the invariant-pair basis ``(n, p)``, orthonormal;
+    * ``P0 = (X^H X)^{-1} X^H`` and ``G0 = (sigma I - S) P0``: the bordered
+      solve is ``g = M(sigma)^{-1} z``, ``v0 = g - X (P0 g)``,
+      ``w0 = G0 g`` - the one shifted factorization serves every sweep.
+    """
+
+    def __init__(self, Tre, Tim, Xre, Xim, Pre, Pim, Gre, Gim, p):
+        self.Tre, self.Tim = Tre, Tim
+        self.Xre, self.Xim = Xre, Xim
+        self.Pre, self.Pim = Pre, Pim
+        self.Gre, self.Gim = Gre, Gim
+        self.p = int(p)
+
+    @classmethod
+    def build(cls, X, S, sigma, gamma_theta, m, dt, device=None):
+        """Assembly in complex128 on the host from the complex invariant
+        pair ``(X (n, p), S (p, p))``; the parts go to ``device`` (default:
+        the card) in ``dt``."""
+        from ..config import resolve_device
+
+        device = resolve_device(device)
+        X = np.asarray(X, dtype=complex)
+        S = np.asarray(S, dtype=complex)
+        p = X.shape[1]
+        A = complex(sigma) * np.eye(p) - S
+        R = np.linalg.inv(A)
+        # block diagonal k carries P[k] = (-gamma theta)^k R^{k+1}
+        T = np.zeros(((m + 1) * p, (m + 1) * p), dtype=complex)
+        Pk = R.copy()
+        for k in range(m + 1):
+            for l in range(m + 1 - k):
+                T[l * p:(l + 1) * p, (l + k) * p:(l + k + 1) * p] = Pk
+            Pk = (-complex(gamma_theta)) * (R @ Pk)
+        P0 = np.linalg.solve(X.conj().T @ X, X.conj().T)
+        G0 = A @ P0
+        dt = to_torch_dtype(dt)
+
+        def parts(a):
+            return (torch.as_tensor(a.real, dtype=dt, device=device),
+                    torch.as_tensor(a.imag, dtype=dt, device=device))
+
+        return cls(*parts(T), *parts(X), *parts(P0), *parts(G0), p)
+
+    def max_abs_T(self):
+        """``max |T|`` over the re/im parts (a deflated eigenvalue near sigma
+        makes ``R`` large)."""
+        return float(torch.maximum(self.Tre.abs().max(), self.Tim.abs().max()))
+
+    def extend(self, ytre, ytim):
+        """``(v'_re, v'_im)`` of a work block ``(m+1, n+p)``: its p tail
+        columns (the w-blocks, a slice) through ``T``, folded into the n
+        head columns by ``X``."""
+        p = self.p
+        wre = ytre[:, -p:].reshape(-1)  # (m+1) p values
+        wim = ytim[:, -p:].reshape(-1)
+        tre = (self.Tre @ wre - self.Tim @ wim).reshape(-1, p)
+        tim = (self.Tre @ wim + self.Tim @ wre).reshape(-1, p)
+        vpre = ytre[:, :-p] + tre @ self.Xre.T - tim @ self.Xim.T
+        vpim = ytim[:, :-p] + tre @ self.Xim.T + tim @ self.Xre.T
+        return vpre, vpim
+
+    def border(self, xre, xim):
+        """The bordered solve's tail: ``[g - X (P0 g); (sigma I - S) P0 g]``
+        for the shifted solve's ``g (n,)``; returns length-(n+p) parts."""
+        pgre = self.Pre @ xre - self.Pim @ xim
+        pgim = self.Pre @ xim + self.Pim @ xre
+        w0re = self.Gre @ xre - self.Gim @ xim
+        w0im = self.Gre @ xim + self.Gim @ xre
+        return (torch.cat([xre - (self.Xre @ pgre - self.Xim @ pgim), w0re]),
+                torch.cat([xim - (self.Xre @ pgim + self.Xim @ pgre), w0im]))
+
+
+def _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled, inv_theta,
+          defl=None):
     """One complex-as-real IAR step, ``k`` the 1-based step index; updates
     the carry ``(Vre, Vim, Hre, Him)`` in place and returns beta.
 
     ``scaled``: run in the Taylor-normalized space ``u_j = (j!/theta^j) y_j``
     — the block shift carries a constant ``1/theta`` factor instead of
-    ``1/(j+1)`` and the coefficient table must be the scaled table."""
+    ``1/(j+1)`` and the coefficient table must be the scaled table.
+    ``defl``: a :class:`DeflationOps`; the basis then has length n + p while
+    the bank and the shifted solve stay at length n."""
     Vre, Vim, Hre, Him = carry
     dt, dev = Vre.dtype, Vre.device
     jblk = torch.arange(m + 1, device=dev)
@@ -160,20 +249,28 @@ def _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled, inv_theta):
     ytre[1:k + 1] = Vre[k - 1, :k] * sj[:, None]
     ytim[1:k + 1] = Vim[k - 1, :k] * sj[:, None]
 
+    if defl is not None:
+        # Effenberger extension: the invariant-pair coupling folds into the
+        # same bank contraction via v'_l = v_l + X t_l
+        vpre, vpim = defl.extend(ytre, ytim)
+    else:
+        vpre, vpim = ytre, ytim
     # term weights: W = Y @ C^T, complex split into four small GEMMs
-    WreT = Cre @ ytre - Cim @ ytim  # (terms, n)
-    WimT = Cre @ ytim + Cim @ ytre
+    WreT = Cre @ vpre - Cim @ vpim  # (terms, n)
+    WimT = Cre @ vpim + Cim @ vpre
     if hasattr(bank, "lincomb_apply_split_t"):
         zre, zim = bank.lincomb_apply_split_t(WreT, WimT)  # as held
     else:
         zre = bank.lincomb_apply(WreT.T)
         zim = bank.lincomb_apply(WimT.T)
     zre, zim = zre.to(dt), zim.to(dt)
-    # identity term: -gamma * y_1
-    zre = zre - gre * ytre[1] + gim * ytim[1]
-    zim = zim - gre * ytim[1] - gim * ytre[1]
+    # identity term: -gamma * y_1 (on the extended v'_1)
+    zre = zre - gre * vpre[1] + gim * vpim[1]
+    zim = zim - gre * vpim[1] - gim * vpre[1]
 
     xre, xim = solver.solve_pair(zre, zim)
+    if defl is not None:
+        xre, xim = defl.border(xre, xim)
     ytre[0] = -xre
     ytim[0] = -xim
 
@@ -214,12 +311,12 @@ def _init_carry(m, v0re, v0im, dt):
 
 
 def _scan_chunk(bank, m, nsteps, k0, carry, Cre, Cim, gre, gim, solver,
-                scaled=False, inv_theta=1.0):
+                scaled=False, inv_theta=1.0, defl=None):
     """Advance ``nsteps`` IAR steps starting at (1-based) step ``k0``; the
     carry is updated in place and returned."""
     for k in range(int(k0), int(k0) + int(nsteps)):
         _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled,
-              inv_theta)
+              inv_theta, defl)
     return carry
 
 
@@ -309,7 +406,8 @@ def apply_theta(Sre, Sim, theta):
 
 def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
                  neigs, tol, resnorm, n=None, check_error_every=None,
-                 scaled=False, theta=1.0, device=None, precision=None):
+                 scaled=False, theta=1.0, defl=None, device=None,
+                 precision=None):
     """Shared complex-as-real IAR loop.
 
     ``id_coeff``: coefficient of the virtual ``-coeff * y_1`` identity term
@@ -317,7 +415,9 @@ def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
     finite) the m-step scan runs in chunks of that many steps; after each the
     Hessenberg pair and first-block basis rows come to the host, Ritz pairs
     are extracted and ``resnorm`` measured, and the run stops once ``neigs``
-    pairs are below ``tol``.  ``precision`` is accepted for parity with the
+    pairs are below ``tol``.  ``defl``: a :class:`DeflationOps` extending
+    the scan by an invariant pair (``v`` and ``n`` are then of length
+    n + p).  ``precision`` is accepted for parity with the
     JAX package and does nothing: TF32 is off (``neptpu_torch.config``), so
     float32 products already run in full float32.  Returns ``(lams, Q,
     info)`` over the converged pairs, residual-sorted."""
@@ -354,7 +454,8 @@ def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
         while k_done < m:
             steps = min(chunk, m - k_done)
             carry = _scan_chunk(bank, m, steps, k_done + 1, carry, *args,
-                                scaled=scaled, inv_theta=inv_theta)
+                                scaled=scaled, inv_theta=inv_theta,
+                                defl=defl)
             k_done += steps
             tc = time.perf_counter()
             lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma, gamma)
@@ -370,7 +471,7 @@ def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
         _, lams, Q, errs = best
     else:
         carry = _scan_chunk(bank, m, m, 1, start(), *args, scaled=scaled,
-                            inv_theta=inv_theta)
+                            inv_theta=inv_theta, defl=defl)
         k_done = m
         lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma, gamma)
         errs = _filtered_errs(lams, Q, ests, resnorm, neigs)

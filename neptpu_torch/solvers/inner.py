@@ -75,7 +75,7 @@ class IARInnerSolver(InnerSolver):
 
 class IARChebInnerSolver(IARInnerSolver):
     """Chebyshev-basis IAR for the inner problem; runs the Taylor IAR, as the
-    JAX package does until its ``iar_chebyshev`` takes this role (the
+    JAX package's does (its ``iar_chebyshev`` is not wired in here; the
     projected problems are analytic near the shift, where the two are
     equivalent)."""
 

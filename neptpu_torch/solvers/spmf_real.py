@@ -22,8 +22,8 @@ import torch
 
 from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
 from ..ops.mixed import make_mixed_bank
-from .iar_real import (apply_theta, auto_theta, block_assemble_lu,
-                       run_iar_real)
+from .iar_real import (DeflationOps, apply_theta, auto_theta,
+                       block_assemble_lu, run_iar_real)
 
 __all__ = [
     "collect_spmf_terms",
@@ -33,6 +33,7 @@ __all__ = [
     "spmf_shift_block_lu",
     "iar_real_spmf",
     "iar_real_spmf_multishift",
+    "iar_real_spmf_deflated",
 ]
 
 
@@ -285,3 +286,168 @@ def iar_real_spmf_multishift(nep, sigmas, gamma=1.0, maxit=30, neigs=6,
         return lams, Q, {"per_shift": infos, "errs": errs[sel],
                          "t_bank": t_bank}
     return lams, Q
+
+
+def iar_real_spmf_deflated(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6,
+                           tol=None, restarts=None, v=None,
+                           dtype=torch.float32, check_error_every=None,
+                           errmeasure=None, return_info=False, seed=0,
+                           device=None):
+    """Restarted complex-as-real IAR with Effenberger deflation: converged
+    pairs never reconverge.
+
+    Each sweep runs the theta-scaled scan extended by the current invariant
+    pair (X, S) through :class:`~neptpu_torch.solvers.iar_real.DeflationOps`:
+    the bank apply stays the ordinary one at length n on ``v' = v + X t``
+    (one pair launch a step on the card), the bordered solve reuses the one
+    shifted factorization.  A sweep's converged new pairs augment (X, S)
+    (``normalize_schur_pair``); a sweep that converges nothing restarts from
+    a fresh random vector (``np.random.default_rng(seed)``, as the JAX
+    package draws them).  ``restarts`` defaults to ``neigs + 2`` sweeps.
+
+    Returns ``(D, Q[, info])``: the original problem's eigenpairs as captured
+    at convergence (``u = v + X (lam I - S)^{-1} w``, unit columns), sorted
+    by ``errmeasure`` (default: the backward error ``||M(lam) u|| /
+    sum_i |f_i(lam)| ||A_i||_F`` on the host).  ``info``: ``t_factorize``,
+    ``t_scan``, ``t_check`` (host Ritz checks, all sweeps), ``theta``,
+    ``sweeps`` (converged pairs per sweep), ``nconv``, ``m_per_sweep`` and,
+    per sweep, ``t_check_sweeps``, ``k_done_sweeps`` (scan steps) and
+    ``max_abs_T`` (0 for the undeflated first sweep).  ``device=None`` is the card."""
+    from ..models.deflation import normalize_schur_pair
+    from ..ops.partitioned import build_spmf_shift_solver
+
+    device = resolve_device(device)
+    mats, fv = collect_spmf_terms(nep)
+    n = mats[0].shape[0]
+    m = int(maxit)
+    dt = to_torch_dtype(dtype)
+    if tol is None:
+        tol = 1e4 * float(torch.finfo(dt).eps)
+    if restarts is None:
+        restarts = int(neigs) + 2
+    bank = make_mixed_bank(mats, dtype=to_numpy_dtype(dt), device=device)
+
+    t0 = time.perf_counter()
+    solver = build_spmf_shift_solver(mats, fv, sigma, dtype=dt, device=device)
+    if solver is None:
+        solver = spmf_shift_block_lu(mats, fv, sigma, dtype=dt, device=device)
+    _sync(device)
+    t_fact = time.perf_counter() - t0
+
+    # the deflated scan runs in the theta-scaled Taylor space only
+    Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m, scaled=True)
+    theta = auto_theta(Cre, Cim, m, dt)
+    Cre, Cim = apply_theta(Cre, Cim, theta)
+    m_fin = finite_table_prefix(Cre, Cim, dt)
+    if m_fin < m:
+        m = m_fin
+        Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
+    # the extension folds w-block content into v'_0 = X t_0, whose j=0 term
+    # M(sigma) X t_0 must not be dropped: column 0 holds f_i(sigma) (without
+    # deflation the pre-solve block 0 is zero, so it changes nothing)
+    f0 = spmf_fun_scalars(fv, sigma)
+    Cre[:, 0], Cim[:, 0] = f0.real, f0.imag
+
+    fro = np.array([np.sqrt(np.abs(A.multiply(A.conj())).sum())
+                    for A in mats])
+    rn0 = _spmf_host_resnorm(mats, fv)
+
+    def backward(lam, u):
+        scale = float(np.abs(spmf_fun_scalars(fv, lam)) @ fro)
+        return rn0(lam, u) / scale
+
+    meas = errmeasure if errmeasure is not None else backward
+
+    rng = np.random.default_rng(seed)
+    X = np.zeros((n, 0), dtype=complex)
+    S = np.zeros((0, 0), dtype=complex)
+    sweeps, t_checks, max_T, k_done = [], [], [], []
+    found = []  # (lam, recovered original eigvec) captured at convergence
+    t_scan = 0.0
+    for _ in range(int(restarts)):
+        p = X.shape[1]
+        if p >= neigs:
+            break
+        defl = None if p == 0 else DeflationOps.build(
+            X, S, sigma, gamma * theta, m, dt, device=device)
+        max_T.append(0.0 if defl is None else defl.max_abs_T())
+
+        def rn_ext(lam, q, p=p, X=X, S=S):
+            # original-problem error of the recovered eigvec
+            # u = v + X (lam I - S)^{-1} w  (Effenberger recovery)
+            if p == 0:
+                u = q
+            else:
+                w = np.linalg.solve(complex(lam) * np.eye(p) - S,
+                                    np.asarray(q[n:]))
+                u = np.asarray(q[:n]) + X @ w
+            nu = np.linalg.norm(u)
+            return meas(lam, u / nu) if nu > 0 else np.inf
+
+        if v is not None and p == 0:
+            v0 = np.asarray(v, dtype=complex)
+        else:
+            v0 = (rng.standard_normal(n + p)
+                  + 1j * rng.standard_normal(n + p))
+        lams, Q, info = run_iar_real(
+            bank, m, Cre, Cim, 0.0, v0, solver, dt,
+            sigma=sigma, gamma=gamma, neigs=neigs - p, tol=tol,
+            resnorm=rn_ext, n=n + p, check_error_every=check_error_every,
+            scaled=True, theta=theta, defl=defl, device=device)
+        t_scan += info["t_scan"]
+        t_checks.append(info["t_check"])
+        k_done.append(info["k_done"])
+        sweeps.append(info["nconv"])
+        if info["nconv"] == 0:
+            continue  # a fresh random start next sweep
+        # multi-augment the invariant pair with this sweep's converged new
+        # pairs: V1 = [X, v_j...], S1 = [[S, w_j...], [0, diag(lam_j)]]
+        eigS = np.linalg.eigvals(S) if p else np.array([])
+        newV, newW, newL = [], [], []
+        for j in range(len(lams)):
+            la = complex(lams[j])
+            if eigS.size and np.min(np.abs(la - eigS)) < 1e-8 * max(
+                    1.0, abs(la)):
+                continue  # numerically a duplicate (should not happen)
+            if newL and np.min(np.abs(la - np.asarray(newL))) < 1e-8 * max(
+                    1.0, abs(la)):
+                continue
+            newV.append(np.asarray(Q[:n, j]))
+            newW.append(np.asarray(Q[n:, j]) if p else np.zeros(0))
+            newL.append(la)
+            # the recovered original-problem eigvec, captured now (the
+            # invariant pair's conditioning can cost the final eig(S) digits)
+            if p:
+                wj = np.linalg.solve(la * np.eye(p) - S, newW[-1])
+                uj = newV[-1] + X @ wj
+            else:
+                uj = newV[-1]
+            found.append((la, uj / np.linalg.norm(uj)))
+        if not newL:
+            continue
+        k = len(newL)
+        V1 = np.concatenate([X] + [vv[:, None] for vv in newV], axis=1)
+        S1 = np.zeros((p + k, p + k), dtype=complex)
+        S1[:p, :p] = S
+        for j in range(k):
+            S1[:p, p + j] = newW[j]
+            S1[p + j, p + j] = newL[j]
+        S, X = normalize_schur_pair(S1, V1)
+
+    # eigenpairs as captured at convergence, sorted by the error measure
+    if found:
+        D = np.array([la for la, _ in found])
+        Q = np.stack([u for _, u in found], axis=1)
+        order = np.argsort([meas(D[j], Q[:, j]) for j in range(len(D))])
+        D, Q = D[order], Q[:, order]
+    else:
+        D = np.zeros(0, dtype=complex)
+        Q = np.zeros((n, 0), dtype=complex)
+    info = {"t_factorize": t_fact, "t_scan": t_scan,
+            "t_check": float(sum(t_checks)), "theta": theta,
+            "sweeps": sweeps, "nconv": int(len(D)), "m_per_sweep": m,
+            "t_check_sweeps": t_checks, "max_abs_T": max_T,
+            "k_done_sweeps": k_done}
+    if return_info:
+        return D, Q, info
+    return D, Q

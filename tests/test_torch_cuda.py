@@ -393,3 +393,89 @@ def test_small_slice_on_the_card_matches_cpu(cuda):
         out[str(dt)] = lams
     a, b = out["torch.float32"], out["torch.float64"]
     assert all(np.min(np.abs(b - x)) / abs(x) < 1e-9 for x in a)
+
+
+def _deflated_step_inputs(device, dtype):
+    """A small gun-structured problem's bank, shifted solver, scaled table
+    and an invariant pair of two, ready for one deflated scan step."""
+    from neptpu_torch.ops.mixed import make_mixed_bank
+    from neptpu_torch.solvers.iar_real import (DeflationOps, apply_theta,
+                                               as_pair_solver)
+    from neptpu_torch.solvers.spmf_real import (spmf_coeff_table,
+                                                spmf_shift_block_lu)
+
+    nep = _gun_from_matrices(*small_gun_like(nx=24), device=device)
+    mats, fv = collect_spmf_terms(nep)
+    n, m, p = nep.n, 8, 2
+    bank = make_mixed_bank(mats, dtype=np.dtype(str(dtype)[6:]),
+                           device=device)
+    solver = as_pair_solver(spmf_shift_block_lu(mats, fv, SMALL_SIGMA,
+                                                dtype=dtype, device=device))
+    Cre, Cim = spmf_coeff_table(fv, SMALL_SIGMA, SMALL_GAMMA, m, scaled=True)
+    Cre, Cim = apply_theta(Cre, Cim, 0.8)
+    f0 = spmf_fun_scalars(fv, SMALL_SIGMA)
+    Cre[:, 0], Cim[:, 0] = f0.real, f0.imag
+    rng = np.random.default_rng(7)
+    X, _ = np.linalg.qr(rng.standard_normal((n, p))
+                        + 1j * rng.standard_normal((n, p)))
+    S = np.diag(SMALL_SIGMA + np.array([3000.0 + 2j, -4500.0 + 1j]))
+    defl = DeflationOps.build(X, S, SMALL_SIGMA, SMALL_GAMMA * 0.8, m, dtype,
+                              device=device)
+    from neptpu_torch.solvers.iar_real import _init_carry
+
+    v0 = rng.standard_normal((2, n + p))
+    carry = _init_carry(m, *(torch.from_numpy(v).to(device=device,
+                                                     dtype=dtype)
+                             for v in v0), dtype)
+    table = [torch.from_numpy(C).to(device=device, dtype=dtype)
+             for C in (Cre, Cim)]
+    return bank, solver, table, defl, carry, m
+
+
+@pytest.mark.cuda
+def test_deflated_scan_step_on_the_card(cuda):
+    """The first deflated step of a scan (basis n + p, the bank at n) on the
+    card makes exactly one float32 pair launch and equals the same step on
+    the CPU."""
+    from neptpu_torch.solvers.iar_real import _step
+
+    out = {}
+    for device in (cuda, torch.device(CPU)):
+        bank, solver, (Cre, Cim), defl, carry, m = _deflated_step_inputs(
+            device, torch.float32)
+        dia_kernel.DIA_SPMV.reset_counts()
+        _step(carry, 1, bank, m, Cre, Cim, 0.0, 0.0, solver, True, 1.25,
+              defl)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            assert dia_kernel.DIA_SPMV.entry_counts == {
+                **{k: 0 for k in dia_kernel.DIA_SPMV.entry_counts},
+                "dia_lincomb_pair_f32": 1}
+        out[device.type] = [c.cpu().numpy() for c in carry]
+    for a, b in zip(out["cuda"], out["cpu"]):
+        assert rel_err(a, b) < 1e-4
+
+
+@pytest.mark.cuda
+def test_ilan_bmult_on_the_card(cuda):
+    """``ilan``'s rank-q delay Bmult through the DIA bank on the card (pair
+    launches, one per column) equals the CPU."""
+    from neptpu_torch import DEP, nep_gallery
+    from neptpu_torch.solvers.ilan import (_bmult, _fdh_tables,
+                                           symmetrizer_coefficients)
+
+    mats = nep_gallery("dep_symm_double", 30, device=CPU).bank.host_csr_terms()
+    m, k, sigma, gamma = 12, 10, -1.0, 1.0
+    G = symmetrizer_coefficients(m)
+    Qn = np.random.default_rng(8).standard_normal((900, m + 1)) * (1 + 1j)
+    Z = {}
+    for device in (cuda, torch.device(CPU)):
+        nep = DEP(None, tauv=[0.0, 2.0], bank=DiaTermBank.from_matrices(
+            mats, device=device))
+        F = _fdh_tables(nep, m, sigma, gamma)
+        before = dia_kernel.DIA_SPMV.counts["dia_lincomb_pair"]
+        Z[device.type] = _bmult(nep, k, torch.from_numpy(Qn).to(device), G,
+                                F, sigma, gamma).cpu().numpy()
+        if device.type == "cuda":
+            assert dia_kernel.DIA_SPMV.counts["dia_lincomb_pair"] > before
+    assert rel_err(Z["cuda"], Z["cpu"]) < 1e-12

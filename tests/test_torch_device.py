@@ -94,6 +94,28 @@ def _calls(gun):
         "LowRankFactorizedNEP": lambda d: neptpu_torch.LowRankFactorizedNEP(
             [np.ones((9, 1))], [np.ones((9, 1))],
             [neptpu_torch.matfun.eye_like], device=d),
+        "iar_real_spmf_deflated": lambda d: neptpu_torch.iar_real_spmf_deflated(
+            nep, sigma=SMALL_SIGMA, gamma=600.0, maxit=4, neigs=1,
+            restarts=1, dtype=torch.float64, device=d),
+        "DeflationOps.build": lambda d: neptpu_torch.DeflationOps.build(
+            np.ones((4, 1)), 0.5 * np.eye(1), 1.0, 1.0, 2, torch.float64,
+            device=d),
+        "iar_chebyshev": lambda d: _partial(neptpu_torch.iar_chebyshev)(
+            DEP_CPU(), maxit=4, neigs=1, device=d),
+        "ilan": lambda d: _partial(neptpu_torch.ilan)(
+            DEP_CPU(), maxit=3, neigs=1, device=d),
+        "infbilanczos": lambda d: _partial(neptpu_torch.infbilanczos)(
+            DEP_CPU(), DEP_CPU(), maxit=3, neigs=1, device=d),
+        "blocknewton": lambda d: _partial(neptpu_torch.blocknewton)(
+            DEP_CPU(), maxit=1, device=d),
+        "broyden": lambda d: neptpu_torch.broyden(
+            neptpu_torch.nep_gallery("dep0", device=CPU), pmax=1, maxit=5,
+            device=d),
+        "REP": lambda d: neptpu_torch.REP([np.eye(3), np.eye(3)], [1.0],
+                                          [2.0], device=d),
+        "interpolate_pep": lambda d: neptpu_torch.interpolate_pep(
+            neptpu_torch.Mder_NEP(3, lambda lam, der: np.eye(3) * lam),
+            [0.0, 1.0], device=d),
     }
 
 
@@ -129,7 +151,10 @@ ENTRY_POINTS = ["nep_gallery_gun_like", "nep_gallery_waveguide", "PEP",
                 "DEP", "iar_real", "tiar_real", "iar", "tiar",
                 "dep_shift_block_lu", "jd_betcke", "jd_effenberger",
                 "nlar", "mslp", "sgiter", "rfi", "rfi_b",
-                "LowRankFactorizedNEP"] + NEWTONS + [
+                "LowRankFactorizedNEP", "iar_real_spmf_deflated",
+                "DeflationOps.build", "iar_chebyshev", "ilan",
+                "infbilanczos", "blocknewton", "broyden", "REP",
+                "interpolate_pep"] + NEWTONS + [
                     f"nep_gallery_{g}" for g in GALLERY_NAMES]
 
 
@@ -175,6 +200,12 @@ def test_resolve_device_prefers_the_callers_objects(gun):
     dnep = neptpu_torch.deflate_eigpair(dep, -0.3, torch.ones(dep.n))
     assert dnep.V0_t.device.type == "cpu"
     assert dnep.spmf.nep1.bank.device.type == "cpu"
+    # and so do its transformations
+    assert neptpu_torch.shift_and_scale(dep, shift=0.1).bank.device.type == (
+        "cpu")
+    assert neptpu_torch.taylor_expansion_pep(dep, 2).bank.device.type == "cpu"
+    assert neptpu_torch.interpolate_pep(dep, [0.0, 1.0]).bank.device.type == (
+        "cpu")
     pnep = neptpu_torch.create_proj_NEP(dnep, 3)
     pnep.set_projectmatrices(torch.eye(dnep.n, 2), torch.eye(dnep.n, 2))
     assert pnep.W.device.type == "cpu" and pnep.bank.device.type == "cpu"

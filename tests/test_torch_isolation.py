@@ -31,6 +31,11 @@ import neptpu_torch.ops.eigsolve, neptpu_torch.solvers.inner
 import neptpu_torch.solvers.jd, neptpu_torch.solvers.nlar
 import neptpu_torch.solvers.companion, neptpu_torch.solvers.mslp
 import neptpu_torch.solvers.sgiter, neptpu_torch.solvers.rfi
+import neptpu_torch.transforms, neptpu_torch.transforms.shift_scale
+import neptpu_torch.models.derspmf, neptpu_torch.models.helpers
+import neptpu_torch.solvers.iar_chebyshev, neptpu_torch.solvers.ilan
+import neptpu_torch.solvers.infbilanczos, neptpu_torch.solvers.blocknewton
+import neptpu_torch.solvers.broyden
 dep = neptpu_torch.nep_gallery('dep0_tridiag', 40, device='cpu')
 neptpu_torch.iar_real(dep, sigma=-0.2, maxit=8, neigs=1, device='cpu')
 neptpu_torch.tiar_real(dep, sigma=-0.2, maxit=8, neigs=1, device='cpu')
@@ -44,6 +49,21 @@ neptpu_torch.nlar(neptpu_torch.nep_gallery('pep0', 40, device='cpu'),
                   tol=1e-9, device='cpu')
 neptpu_torch.iar(dep, sigma=-0.2, maxit=20, neigs=1, proj_solve=True,
                  check_error_every=5, device='cpu')
+import numpy as np, torch
+nx = 12
+from neptpu_torch.models.gallery.nlevp import _gun_from_matrices
+import scipy.sparse as sp
+L1 = sp.diags([-np.ones(nx - 1), 2 * np.ones(nx), -np.ones(nx - 1)], [-1, 0, 1])
+K = ((sp.kron(L1, sp.eye(nx)) + sp.kron(sp.eye(nx), L1)) * 169).tocsr()
+M = sp.eye(nx * nx, format='csr')
+W = sp.csr_matrix(([1.0, 0.5], ([3, 7], [7, 3])), shape=(144, 144))
+neptpu_torch.iar_real_spmf_deflated(
+    _gun_from_matrices(K, M, W, W.T.tocsr(), device='cpu'),
+    sigma=300.0 + 5j, gamma=150.0, maxit=6, neigs=2, restarts=2,
+    dtype=torch.float64, device='cpu')
+neptpu_torch.iar_chebyshev(neptpu_torch.nep_gallery('dep0', device='cpu'),
+                           neigs=1, maxit=10, v=[1.0] * 5, tol=1e-8,
+                           device='cpu')
 for name in neptpu_torch.__all__:
     getattr(neptpu_torch, name)
 nep = neptpu_torch.nep_gallery('waveguide', nx=5, nz=3, neptype='SPMF',
@@ -72,7 +92,7 @@ def test_every_module_of_the_port_imports_alone():
                 rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
                 mods.append(rel.replace(os.sep, ".").removesuffix(
                     ".__init__"))
-    assert len(mods) >= 40
+    assert len(mods) >= 48 and "neptpu_torch.transforms.shift_scale" in mods
     probe = ("import importlib, sys\n"
              f"for m in {mods!r}:\n    importlib.import_module(m)\n"
              "print(','.join(sorted(m for m in sys.modules if "

@@ -83,6 +83,34 @@ def test_gmres_linsolver_matches_jax(dep):
     assert rel_err((At @ y).numpy(), bt.numpy()) < 1e-10
 
 
+# ROADMAP C3: with a preconditioner M = c I the restarts stop at
+# ||M r|| <= tol ||b|| (and a restart at tol ||M b||), as
+# jax.scipy.sparse.linalg.gmres(solve_method="incremental") does - the
+# iterate, and so its true residual, is the JAX package's
+@pytest.mark.parametrize("c", [1.0, 1e3, 1e-3])
+def test_preconditioned_gmres_stops_where_jax_does(c):
+    import jax
+
+    rng = np.random.default_rng(0)
+    n = 200
+    A = np.diag(np.linspace(1.0, 10.0, n)) + 0.1 * rng.standard_normal((n, n))
+    b = rng.standard_normal(n)
+    kw = dict(tol=1e-6, restart=3, maxiter=200)
+    xj, _ = jax.scipy.sparse.linalg.gmres(
+        lambda v: jnp.asarray(A) @ v, jnp.asarray(b), M=lambda v: c * v,
+        solve_method="incremental", **kw)
+    xj = np.asarray(xj)
+    At = torch.from_numpy(A)
+    x = linsolve.gmres(lambda v: At @ v, torch.from_numpy(b),
+                       M=lambda v: c * v, **kw).numpy()
+    assert rel_err(x, xj) < 1e-8
+    relres, relres_j = (np.linalg.norm(A @ y - b) / np.linalg.norm(b)
+                        for y in (x, xj))
+    assert relres == pytest.approx(relres_j, rel=1e-6)
+    if c == 1e-3:  # JAX's rule: the true residual ends far above tol
+        assert relres > 1e-4
+
+
 def test_creators_cache_and_dispatch(dep):
     tnep, _ = dep
     cr = linsolve.FactorizeLinSolverCreator(max_factorizations=1)
