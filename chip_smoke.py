@@ -88,6 +88,17 @@ Phases, a few informative lines each (any failure exits non-zero):
      held against float64 ``iar_real`` there), every pair at backward error
      <= 1e-10 and within rel 1e-6 of float64 ``iar_real``'s eigenvalues,
      within 120 s;
+   * rational: gun_like (n = 9956, complex128) through ``nleigs`` (a box
+     around six pinned eigenvalues, the poles on the second square root's
+     branch cut, three shifts with one dense LU each), ``AAAeigs`` (400
+     samples of the box, the same shifts), ``contour_beyn`` and
+     ``contour_block_SS`` (an ellipse around the same six, 128 nodes, eight
+     nodes' dense M LU-factored as one stack): every pinned eigenvalue in
+     the region found (AAAeigs: >= 4 of its 6 pairs), NLEIGS and AAAeigs at
+     backward error <= 1e-10 and rel 1e-9 of the oracle, the contour methods
+     within rel 1e-8 and with no other eigenvalue in the ellipse; one float64
+     pair launch per NLEIGS divided-difference apply and per AAAeigs
+     iteration; within 200 s;
 5. refine-chip: the gun_like candidates refined again on the card
    (``BatchedShiftSMW``: float32 factors + float64 iterative refinement)
    against the host backend: >= 10 distinct at 1e-9, eigenvalues within rel
@@ -158,6 +169,15 @@ SPMF_DEFLATED = {
 # eig of the (n + k)^2 bordered matrix on the host)
 KRYLOV = dict(broyden_nside=40, budget=120.0)
 DEVICE = "cuda"  # every phase runs on the card
+# [rational]: the rational-Krylov, AAA and contour family on gun_like.  The
+# box Sigma and the ellipse both lie inside the disk of radius 128.7 about
+# SIGMA that the pinned oracle covers, so every eigenvalue in them is
+# pinned; the nodes (NLEIGS's shifts after the freeze, AAAeigs's shifts) sit
+# inside the box, each more than 1 from every pinned value
+RATIONAL = dict(box=(19965 - 15j, 19965 + 15j, 20035 + 15j, 20035 - 15j),
+                nodes=(19980 + 6j, 20000 + 6j, 20020 + 6j),
+                center=2.0e4 + 2j, radius=(35.0, 10.0), N=128, chunk=8,
+                tol=1e-10, budget=200.0)
 # published peaks of one H100 SXM (NVIDIA data sheet): the bounds' rates
 PEAK_BYTES_PER_S = 3.35e12
 # vector rates; the bfloat16 kernels widen to float32 before multiplying
@@ -1560,6 +1580,229 @@ def phase_dep_krylov(torch, dia_kernel, cfg, dep, found, pairs64):
     return out
 
 
+def _box_samples(box, nb=300, grid=(10, 10)):
+    """Samples on the rectangle ``box`` (its boundary at ``nb`` points and
+    an interior grid): AAAeigs's set Z."""
+    from neptpu_torch.solvers.rk.polygon import discretizepolygon
+
+    edge = discretizepolygon(list(box), npts=nb)[0][:nb]
+    re_, im_ = np.real(box), np.imag(box)
+    xs = np.linspace(re_.min(), re_.max(), grid[0] + 2)[1:-1]
+    ys = np.linspace(im_.min(), im_.max(), grid[1] + 2)[1:-1]
+    return np.concatenate([edge, (xs[None, :] + 1j * ys[:, None]).ravel()])
+
+
+def phase_rational(torch, dia_kernel, gun, cfg=RATIONAL):
+    """The rational-Krylov, AAA and contour family on full-size gun_like
+    (n = 9956, complex128), each solver through its entry point with the
+    launch counts set to 0 just before and read just after:
+
+    * ``nleigs`` on the box ``cfg["box"]`` with the poles on the branch cut
+      of the second square root and the shifts at ``cfg["nodes"]`` (one
+      dense LU on the card each, kept), backward error tol 1e-10;
+    * ``AAAeigs`` on samples of the same box, the same shifts, 6 pairs;
+    * ``contour_beyn`` and ``contour_block_SS`` on the ellipse
+      ``cfg["center"]``, ``cfg["radius"]`` with N nodes, the dense M of
+      ``cfg["chunk"]`` nodes LU-factored as one stack.
+
+    Gates: NLEIGS returns every pinned eigenvalue in the box, each within rel
+    1e-9 of it, distinct, at backward error <= 1e-10; AAAeigs returns 6
+    pairs at backward error <= 1e-10, those inside the oracle disk within
+    rel 1e-9 of a pinned value, at least 4 of them; Beyn and block-SS return
+    every pinned eigenvalue inside the ellipse within rel 1e-8 and no other
+    eigenvalue inside it; NLEIGS launches the float64 pair kernel at least
+    once per divided-difference apply and AAAeigs once per iteration; the
+    contour methods factor ceil(N / chunk) stacks of N nodes in all; the
+    phase within ``cfg["budget"]`` seconds."""
+    import warnings
+
+    from neptpu_torch import (AAAeigs, FactorizeLinSolverCreator,
+                              NoConvergenceException, StandardSPMFErrmeasure,
+                              contour_beyn, contour_block_SS, nep_gallery,
+                              nleigs)
+    from neptpu_torch.models.gallery.nlevp import GUN_SIGMA2
+    from neptpu_torch.solvers import contour
+    from neptpu_torch.solvers.nleigs import in_Sigma
+
+    class TimedLU(FactorizeLinSolverCreator):
+        """The dense-LU creator, counting its factorizations and their
+        seconds (assembly of M included) on the card's clock."""
+        count, seconds = 0, 0.0
+
+        def _make(self, nep, lam):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            solver = super()._make(nep, lam)
+            torch.cuda.synchronize()
+            self.count += 1
+            self.seconds += time.perf_counter() - t0
+            return solver
+
+    lu_time = [0.0]
+    plain_factor = contour.batched_lu_factor
+
+    def timed_factor(A):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = plain_factor(A)
+        torch.cuda.synchronize()
+        lu_time[0] += time.perf_counter() - t0
+        return out
+
+    t_phase = time.perf_counter()
+    nep = nep_gallery("gun_like", device=DEVICE)
+    backward, tol = gun["backward"], cfg["tol"]
+    box, nodes = list(cfg["box"]), list(cfg["nodes"])
+    center, radius, N, chunk = (cfg["center"], cfg["radius"], cfg["N"],
+                                cfg["chunk"])
+    pinned_box = GUN_LIKE_PINNED[in_Sigma(GUN_LIKE_PINNED, box, 0.0)]
+
+    def in_ellipse(x):
+        d = np.asarray(x) - center
+        return (d.real / radius[0]) ** 2 + (d.imag / radius[1]) ** 2 <= 1
+
+    pinned_ell = GUN_LIKE_PINNED[in_ellipse(GUN_LIKE_PINNED)]
+    in_disk = 128.7  # every eigenvalue this close to SIGMA is pinned
+    Xi = GUN_SIGMA2**2 - np.logspace(-8, 8, 10000)
+    Z = _box_samples(box)
+    print(f"[rational] gun_like n={nep.n} complex128: box {box}, "
+          f"{len(pinned_box)} pinned values in it; nodes {nodes}; ellipse "
+          f"center {center} radius {radius}, {len(pinned_ell)} pinned values "
+          f"in it; AAA samples {len(Z)}", flush=True)
+    check(len(pinned_box) == 6 and len(pinned_ell) == 6,
+          "rational: the box and the ellipse must hold 6 pinned values each")
+    lus = {}
+
+    def run_nleigs(st):
+        lus["nleigs"] = TimedLU()
+        lam, X, res, _ = nleigs(
+            nep, box, Xi=Xi, nodes=nodes, tol=tol,
+            errmeasure=StandardSPMFErrmeasure,
+            linsolvercreator=lus["nleigs"], stats=st, device=DEVICE)
+        return lam, X
+
+    def run_aaa(st):
+        lus["AAAeigs"] = TimedLU(max_factorizations=len(nodes))
+        lam, X, res, _ = AAAeigs(
+            nep, Z, neigs=6, shifts=nodes, tol=tol,
+            errmeasure=StandardSPMFErrmeasure,
+            linsolvercreator=lus["AAAeigs"], stats=st, device=DEVICE)
+        return lam, X
+
+    def run_beyn(st):
+        return contour_beyn(nep, sigma=center, radius=radius, N=N, neigs=6,
+                            k=8, errmeasure=StandardSPMFErrmeasure,
+                            chunk=chunk, device=DEVICE)
+
+    def run_ss(st):
+        return contour_block_SS(nep, sigma=center, radius=radius, N=N, k=4,
+                                K=4, chunk=chunk, device=DEVICE)
+
+    def rel_gap(x):
+        return float(np.min(np.abs(GUN_LIKE_PINNED - x)) / abs(x))
+
+    out = {}
+    contour.batched_lu_factor = timed_factor
+    try:
+        for name, run in (("nleigs", run_nleigs), ("AAAeigs", run_aaa),
+                          ("contour_beyn", run_beyn),
+                          ("contour_block_SS", run_ss)):
+            st = {}
+            lu_time[0] = 0.0
+            contour.BATCHED_LU.update(chunks=0, nodes=0)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            dia_kernel.DIA_SPMV.reset_counts()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                try:
+                    lams, V = run(st)
+                except NoConvergenceException as e:
+                    raise SmokeFailure(f"rational {name}: {e}; partial "
+                                       f"eigenvalues {np.asarray(e.lam)}")
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launched = {k: v for k, v in
+                        dia_kernel.DIA_SPMV.entry_counts.items() if v}
+            pair64 = launched.get("dia_lincomb_pair_f64", 0)
+            lams = np.asarray(lams)
+            Vh = V.cpu().numpy()
+            errs = np.array([backward(complex(x), Vh[:, i])
+                             for i, x in enumerate(lams)])
+            gaps = np.array([rel_gap(x) for x in lams])
+            if name in lus:
+                lu = (f"LUs {lus[name].count} in {lus[name].seconds:.3f} s "
+                      "(assembly included)")
+            else:
+                lu = (f"stacked LUs {contour.BATCHED_LU['chunks']} of "
+                      f"{contour.BATCHED_LU['nodes']} nodes in "
+                      f"{lu_time[0]:.3f} s")
+            its = (f"iterations {st['iterations']}, kconv {st['kconv']}, "
+                   f"D applies {st['D_applies']}" if name == "nleigs" else
+                   f"iterations {st['iterations']}, support points "
+                   f"{st['m']}" if name == "AAAeigs" else
+                   f"nodes {N}, chunk {chunk}")
+            print(f"[rational] {name}: {len(lams)} pairs "
+                  f"{np.array2string(lams, precision=10)} in {seconds:.3f} "
+                  f"s; {its}; {lu}; f64 pair launches {pair64} (all "
+                  f"{launched}); peak_device_mem "
+                  f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB; max "
+                  f"backward error {max(errs, default=np.nan):.3e}; max rel "
+                  f"gap to the pinned oracle {max(gaps, default=np.nan):.3e}"
+                  + "".join(f"; warned: {w.message}" for w in caught),
+                  flush=True)
+            check(np.isfinite(lams).all() and np.isfinite(errs).all(),
+                  f"rational {name}: non-finite results")
+            if name == "nleigs":
+                hit = [rel_gap(x) <= 1e-9 for x in lams]
+                found = [p for p in pinned_box
+                         if np.min(np.abs(lams - p)) / abs(p) <= 1e-9]
+                check(all(hit) and len(found) == len(pinned_box)
+                      and len(distinct_below_tol(lams, errs, np.inf))
+                      == len(lams) and max(errs) <= tol,
+                      f"rational nleigs: {len(lams)} pairs, {len(found)} of "
+                      f"{len(pinned_box)} pinned found, max backward "
+                      f"{max(errs, default=np.nan):.3e}, max gap "
+                      f"{max(gaps, default=np.nan):.3e}")
+                check(pair64 >= st["D_applies"] > 0,
+                      f"rational nleigs: {pair64} f64 pair launches for "
+                      f"{st['D_applies']} divided-difference applies")
+            elif name == "AAAeigs":
+                near = np.abs(lams - SIGMA) < in_disk
+                check(len(lams) == 6 and max(errs) <= tol
+                      and all(gaps[near] <= 1e-9) and near.sum() >= 4,
+                      f"rational AAAeigs: {len(lams)} pairs, max backward "
+                      f"{max(errs, default=np.nan):.3e}, {int(near.sum())} "
+                      "in the oracle disk, gaps there "
+                      f"{gaps[near]}")
+                check(pair64 >= st["iterations"] > 0,
+                      f"rational AAAeigs: {pair64} f64 pair launches in "
+                      f"{st['iterations']} iterations")
+            else:
+                inside = in_ellipse(lams)
+                found = [p for p in pinned_ell
+                         if np.min(np.abs(lams - p)) / abs(p) <= 1e-8]
+                check(len(found) == len(pinned_ell)
+                      and all(gaps[inside] <= 1e-8),
+                      f"rational {name}: {len(found)} of {len(pinned_ell)} "
+                      "pinned values inside the ellipse found; gaps of the "
+                      f"eigenvalues inside {gaps[inside]}")
+                check(contour.BATCHED_LU["chunks"] == -(-N // chunk)
+                      and contour.BATCHED_LU["nodes"] == N,
+                      f"rational {name}: {contour.BATCHED_LU} stacked LUs "
+                      f"(expected {-(-N // chunk)} chunks of {N} nodes)")
+            out[name] = launched
+    finally:
+        contour.batched_lu_factor = plain_factor
+    t_phase = time.perf_counter() - t_phase
+    print(f"[rational] phase {t_phase:.3f} s (budget {cfg['budget']:g} s)",
+          flush=True)
+    check(t_phase <= cfg["budget"],
+          f"rational took {t_phase:.1f} s (> {cfg['budget']:g} s)")
+    return out
+
+
 def phase_refine_chip(torch, gun):
     """The gun_like candidates refined on the card, against the host
     backend on the same candidates."""
@@ -1819,6 +2062,10 @@ def main():
         paths[f"{prefix} {name}"] = {
             k: launched.get(k, 0) for k in dia_kernel.DIA_SPMV.entry_counts}
     del dep
+    # the rational-Krylov, AAA and contour family on gun_like
+    for name, launched in phase_rational(torch, dia_kernel, gun).items():
+        paths[f"rational {name}"] = {
+            k: launched.get(k, 0) for k in dia_kernel.DIA_SPMV.entry_counts}
     phase_refine_chip(torch, gun)
     if args.profile:
         phase_profile(torch, args.profile, "gun_like",
@@ -1838,7 +2085,7 @@ def main():
                 if k.startswith(on)}
 
     every = ("spmv", "gun_like", "wep", "dep", "spmf-deflated",
-             "shifted-dep")
+             "shifted-dep", "rational")
     f3264 = ("_f32", "_f64")
     # name, kernel-check row, C entry points, main paths that hand the kernel
     # this shape: first each wrapper at the shape of its busiest path (the
@@ -1857,7 +2104,8 @@ def main():
         ("dia_lincomb_pair_f64@dep", "dep f64 pair",
          ["dia_lincomb_pair_f64"], ("dep ", "dep-")),
         ("dia_lincomb_pair_f64@gun_like", "gun_like f64 pair",
-         ["dia_lincomb_pair_f64"], ("spmf-deflated gun_like",)),
+         ["dia_lincomb_pair_f64"],
+         ("spmf-deflated gun_like", "rational")),
         ("dia_lincomb_pair_f64@shifted_dep", "shifted dep f64 pair",
          ["dia_lincomb_pair_f64"], ("shifted-dep",)),
         ("dia_lincomb_pair_f64@dep40", "dep40 f64 pair",

@@ -29,7 +29,11 @@ paths and names:
   for invariant pairs (``blocknewton``, ``broyden``), the problem
   transformations (``shift_and_scale``, ``mobius_transform``,
   ``taylor_expansion_pep``), ``DerSPMF``, the function-handle problems and
-  ``interpolate_pep``.
+  ``interpolate_pep``;
+* the rational family: ``nleigs`` (rational Krylov on a dynamic Leja-Bagby
+  linearization), ``AAAeigs`` and ``svAAA``, the CORK pencils, the contour
+  methods ``contour_beyn`` and ``contour_block_SS`` on batched shifted
+  solves, and the inner solvers built on them.
 
 It imports torch, numpy and scipy — never jax or neptpu.  Entry points run on
 the card unless the caller passes ``device="cpu"``
@@ -55,6 +59,9 @@ from .models.deflation import (DeflatedGenericNEP, DeflatedNEP,
 from .models.dep import DEP
 from .models.derspmf import DerSPMF
 from .models.gallery import nep_gallery
+from .models.gallery.distributed import (distributed_kernel_gauss_legendre,
+                                         distributed_kernel_trapezoidal,
+                                         gauss_legendre_weights)
 from .models.gallery.waveguide import wep_gallery
 from .models.helpers import REP, Mder_Mlincomb_NEP, Mder_NEP
 from .models.lowrank import LowRankFactorizedNEP, LowRankMatrixAndFunction
@@ -76,9 +83,14 @@ from .ops.linsolve import (BackslashLinSolver, BackslashLinSolverCreator,
                            lin_solve)
 from .ops.orth import (DGKS, ClassicalGS, ModifiedGS,
                        orthogonalize_and_normalize)
+from .solvers.aaa import AAAeigs, svAAA
 from .solvers.blocknewton import blocknewton
 from .solvers.broyden import broyden
 from .solvers.companion import companion, polyeig
+from .solvers.contour import (MatrixGaussLegendre, MatrixIntegrator,
+                              MatrixTrapezoidal, batched_shifted_solves,
+                              contour_beyn, contour_block_SS,
+                              integrate_interval)
 from .solvers.iar import iar
 from .solvers.iar_chebyshev import iar_chebyshev
 from .solvers.iar_real import (DeflationOps, dep_shift_block_lu, iar_real,
@@ -92,6 +104,7 @@ from .solvers.inner import (ContourBeynInnerSolver, DefaultInnerSolver,
                             inner_solve)
 from .solvers.jd import jd_betcke, jd_effenberger
 from .solvers.mslp import mslp
+from .solvers.nleigs import NleigsSolutionDetails, nleigs
 from .solvers.newton import (augnewton, implicitdet, newton, newtonqr,
                              quasinewton, resinv)
 from .solvers.nlar import (default_eigval_sorter, nlar,
@@ -99,17 +112,26 @@ from .solvers.nlar import (default_eigval_sorter, nlar,
 from .solvers.refine import newton_refine, resinv_refine
 from .solvers.rf import compute_rf
 from .solvers.rfi import rfi, rfi_b
+from .solvers.rk import (LinSolverCache, discretizepolygon, inpolygon,
+                         lejabagby, nleigs_coefficients, ratnewtoncoeffs,
+                         ratnewtoncoeffsm, scgendivdiffs)
+from .solvers.rk.rknep import RKNEP, get_rk_nep
 from .solvers.sgiter import sgiter
 from .solvers.spmf_real import (iar_real_spmf, iar_real_spmf_deflated,
                                 iar_real_spmf_multishift)
 from .solvers.tiar import tiar
 from .solvers.tiar_real import tiar_real, tiar_real_scan, tiar_real_spmf
-from .transforms import (MobiusTransformedNEP, ShiftScaledNEP,
+from .transforms import (CORKPencil, CORKPencilLR, CorkLinearization,
+                         DefaultCorkLinearization, IarCorkLinearization,
+                         MobiusTransformedNEP, NleigsCorkLinearization,
+                         ShiftScaledNEP, build_pencil, low_rank_compress,
                          mobius_transform, shift_and_scale,
                          taylor_expansion_pep)
 
 jd = jd_betcke
 interpolate = interpolate_pep  # the reference's name
+buildPencil = build_pencil
+lowRankCompress = low_rank_compress
 
 
 def get_Av(nep):
@@ -255,4 +277,38 @@ __all__ = [
     "infbilanczos",
     "blocknewton",
     "broyden",
+    "nleigs",
+    "NleigsSolutionDetails",
+    "AAAeigs",
+    "svAAA",
+    "contour_beyn",
+    "contour_block_SS",
+    "MatrixIntegrator",
+    "MatrixTrapezoidal",
+    "MatrixGaussLegendre",
+    "integrate_interval",
+    "batched_shifted_solves",
+    "LinSolverCache",
+    "discretizepolygon",
+    "inpolygon",
+    "lejabagby",
+    "nleigs_coefficients",
+    "ratnewtoncoeffs",
+    "ratnewtoncoeffsm",
+    "scgendivdiffs",
+    "RKNEP",
+    "get_rk_nep",
+    "CORKPencil",
+    "CORKPencilLR",
+    "CorkLinearization",
+    "DefaultCorkLinearization",
+    "IarCorkLinearization",
+    "NleigsCorkLinearization",
+    "build_pencil",
+    "buildPencil",
+    "low_rank_compress",
+    "lowRankCompress",
+    "gauss_legendre_weights",
+    "distributed_kernel_gauss_legendre",
+    "distributed_kernel_trapezoidal",
 ]

@@ -2,7 +2,8 @@
 from __future__ import annotations
 
 from . import basic, examples
-from .nlevp import gun_like
+from .distributed import dep_distributed
+from .nlevp import gun_like, nlevp_native_loaded_string
 from .waveguide import wep_gallery
 
 __all__ = ["nep_gallery", "GALLERY"]
@@ -18,7 +19,9 @@ GALLERY = {
     "dep1": examples.dep1,
     "dep_symm_double": examples.dep_symm_double,
     "dep_double": examples.dep_double,
+    "dep_distributed": dep_distributed,
     "gun_like": gun_like,
+    "nlevp_native_loaded_string": nlevp_native_loaded_string,
     "waveguide": wep_gallery,
 }
 

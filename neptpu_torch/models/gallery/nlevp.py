@@ -1,17 +1,19 @@
 """Native NLEVP benchmarks: ``gun_like``, a problem with the gun structure
-(n ~ 9956, PEP(K, -M) + 2-term i*sqrt SPMF)."""
+(n ~ 9956, PEP(K, -M) + 2-term i*sqrt SPMF), and the loaded string (a
+rational problem)."""
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ...config import resolve_device
 from ...ops import matfun
 from ..pep import PEP
 from ..spmf import SPMF_NEP
-from ..sumnep import SumNEP
+from ..sumnep import SPMFSumNEP, SumNEP
 from .examples import _load
 
-__all__ = ["gun_like", "GUN_SIGMA2"]
+__all__ = ["gun_like", "GUN_SIGMA2", "nlevp_native_loaded_string"]
 
 GUN_SIGMA2 = 108.8774  # second branch point sqrt(lam - sigma2^2)
 
@@ -74,3 +76,43 @@ def gun_like(n=None, seed=0, device=None):
     K = (L2d.tocsr()[:n, :n] * (nx + 1) ** 2).tocsr()
     M = sp.diags(np.full(n, 1.0) + 0.1 * np.cos(np.arange(n))).tocsr()
     return _gun_from_matrices(K, M, W1, W2, device=device)
+
+
+def _toeplitz(v):
+    n = len(v)
+    T = np.zeros((n, n), dtype=float)
+    for i in range(n):
+        for j in range(n - i):
+            T[i, j + i] = v[j]
+            T[j + i, i] = v[j]
+    return T
+
+
+def nlevp_native_loaded_string(n=20, kappa=1.0, m=1.0, device=None):
+    """The loaded-string rational problem of NLEVP:
+    ``M(lam) = A - lam B + lam / (lam - kappa/m) C``."""
+    import scipy.sparse as sp
+
+    device = resolve_device(device)
+    A0 = sp.csr_matrix(_toeplitz([2.0 * n, -n] + [0.0] * (n - 2)))
+    A1 = np.zeros((n, n))
+    A1[n - 1, n - 1] = n - A0[n - 1, n - 1]
+    B0 = sp.csr_matrix(_toeplitz([4 / (6 * n), 1 / (6 * n)] + [0.0] * (n - 2)))
+    B1 = np.zeros((n, n))
+    B1[n - 1, n - 1] = 2 / (6 * n) - B0[n - 1, n - 1]
+    Cm = np.zeros((n, n))
+    Cm[n - 1, n - 1] = kappa
+    sigma = kappa / m
+
+    def f2(S):
+        return -S
+
+    def f3(S):
+        if S.ndim >= 2:
+            return torch.linalg.solve(S - sigma * matfun.eye_like(S), S)
+        return S / (S - sigma)
+
+    spmf1 = SPMF_NEP([A0, B0], [matfun.eye_like, f2], device=device)
+    spmf2 = SPMF_NEP([sp.csr_matrix(A1), sp.csr_matrix(B1), sp.csr_matrix(Cm)],
+                     [matfun.eye_like, f2, f3], device=device)
+    return SPMFSumNEP(spmf1, spmf2)

@@ -58,8 +58,16 @@ def _lu_solve(lu, piv, b):
 
 def batched_lu_factor(A):
     """LU of a stack ``A (s, n, n)``: returns ``(lu, piv)`` with the leading
-    shift axis kept."""
-    return torch.linalg.lu_factor(A)
+    shift axis kept.  The matrices are factored one at a time into the
+    stacked result: handed a whole stack on the card, PyTorch takes MAGMA's
+    batched getrf, which is built for small matrices and took twice
+    cuSOLVER's time per matrix at n = 9956 (PERF.md, the rational
+    family)."""
+    lu = torch.empty_like(A)
+    piv = torch.empty(A.shape[:-1], dtype=torch.int32, device=A.device)
+    for i in range(A.shape[0]):
+        lu[i], piv[i] = torch.linalg.lu_factor(A[i])
+    return lu, piv
 
 
 def batched_lu_solve(lu_piv, b):

@@ -195,10 +195,38 @@ def inner_solve(is_, dtype, nep, lamv=None, V=None, sigma=0.0, neigs=10,
                         logger=inner_logger, device=device)
         return np.array([complex(lam)]), _host(v)[:, None]
 
-    if isinstance(is_, (ContourBeynInnerSolver, NleigsInnerSolver)):
-        raise NotImplementedError(
-            f"{type(is_).__name__} needs the contour and NLEIGS solvers, "
-            "which the port does not have yet (ROADMAP A.14)")
+    if isinstance(is_, ContourBeynInnerSolver):
+        from .contour import contour_beyn
+
+        lamv = np.atleast_1d(_host(lamv if lamv is not None else [0, 1]))
+        if isinstance(is_.radius, str):  # ":auto"
+            radius = float(np.max(np.abs(sigma - lamv))) * 1.5 + 1e-8
+        else:
+            radius = is_.radius
+        k = int(min(neigs, n - 1)) if n > 1 else 1
+        lams, V_ = contour_beyn(nep, dtype=dtype, neigs=k, sigma=sigma,
+                                radius=radius, N=is_.N, tol=is_.tol,
+                                sanity_check=False, logger=inner_logger,
+                                device=device)
+        return np.asarray(lams), _host(V_)
+
+    if isinstance(is_, NleigsInnerSolver):
+        from .nleigs import nleigs
+
+        lamv = np.atleast_1d(np.asarray(
+            _host(lamv) if lamv is not None else [0, 1], dtype=complex))
+        if isinstance(is_.Sigma, str):  # ":auto"
+            sg = np.mean(lamv)
+            r = float(np.max(np.abs(sg - lamv))) * 1.5 + 1e-8
+            th = np.linspace(0, 2 * np.pi, 1000)
+            Sigma = sg + r * np.exp(1j * th)
+        else:
+            Sigma = is_.Sigma
+        nodes = [0.0 + 0.0j] if isinstance(is_.nodes, str) else is_.nodes
+        lams, V_, _, _ = nleigs(nep, Sigma, nodes=nodes,
+                                tol=tol if tol is not None else is_.tol,
+                                static=True, device=device)
+        return np.asarray(lams), _host(V_)
 
     raise ValueError(f"unknown inner solver {is_}")
 

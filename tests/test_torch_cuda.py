@@ -479,3 +479,87 @@ def test_ilan_bmult_on_the_card(cuda):
         if device.type == "cuda":
             assert dia_kernel.DIA_SPMV.counts["dia_lincomb_pair"] > before
     assert rel_err(Z["cuda"], Z["cpu"]) < 1e-12
+
+
+def _small_gun_pair(device):
+    K, M, W1, W2 = small_gun_like()
+    return _gun_from_matrices(K, M, W1, W2, device=device)
+
+
+@pytest.mark.cuda
+def test_rknep_weighted_apply_is_one_pair_launch(cuda):
+    """NLEIGS's matrix-free divided difference ``sum_i c_i A_i x`` on the
+    card equals the CPU plain twin (float64, rel 1e-12) and launches the
+    pair kernel once, on the polynomial part's DIA bank (the square roots'
+    terms are a CSR bank)."""
+    from neptpu_torch.solvers.rk.rknep import get_rk_nep
+
+    rng = np.random.default_rng(6)
+    c = rng.standard_normal(4) + 1j * rng.standard_normal(4)
+    x = rng.standard_normal(576) + 1j * rng.standard_normal(576)
+    y_cpu = get_rk_nep(_small_gun_pair(CPU)).apply_weighted(
+        c, torch.as_tensor(x))
+    P = get_rk_nep(_small_gun_pair(cuda))
+    dia_kernel.DIA_SPMV.reset_counts()
+    y = P.apply_weighted(c, torch.as_tensor(x, device=cuda))
+    torch.cuda.synchronize()
+    assert dia_kernel.DIA_SPMV.entry_counts["dia_lincomb_pair_f64"] == 1
+    assert dia_kernel.DIA_SPMV.launches == 1
+    assert rel_err(y.cpu().numpy(), y_cpu.numpy()) < 1e-12
+
+
+@pytest.mark.cuda
+def test_aaa_operator_apply_is_one_pair_launch(cuda):
+    """AAAeigs's operator apply ``sum_i P_i W[:, i]`` (``W = Q u_c``) on the
+    card equals the CPU plain twin (float64, rel 1e-12) with one pair launch
+    on the DIA bank."""
+    from neptpu_torch.solvers.aaa import _operator_apply
+
+    rng = np.random.default_rng(7)
+    W = rng.standard_normal((576, 4)) + 1j * rng.standard_normal((576, 4))
+    out = {}
+    for dev in (CPU, cuda):
+        nep = _small_gun_pair(dev)
+        apply = _operator_apply(nep, nep.nep1, nep.nep2, [0, 1])
+        dia_kernel.DIA_SPMV.reset_counts()
+        out[str(dev)] = apply(torch.as_tensor(W, device=dev))
+    torch.cuda.synchronize()
+    assert dia_kernel.DIA_SPMV.entry_counts["dia_lincomb_pair_f64"] == 1
+    assert dia_kernel.DIA_SPMV.launches == 1
+    assert rel_err(out["cuda"].cpu().numpy(), out["cpu"].numpy()) < 1e-12
+
+
+@pytest.mark.cuda
+def test_rational_family_on_the_card(cuda):
+    """NLEIGS, AAAeigs and Beyn on the small gun-structured problem on the
+    card give the CPU run's eigenvalues (rel 1e-10); Beyn factors its nodes
+    as stacked LUs."""
+    from neptpu_torch import (AAAeigs, StandardSPMFErrmeasure, contour_beyn,
+                              nleigs)
+    from neptpu_torch.models.gallery.nlevp import GUN_SIGMA2
+    from neptpu_torch.solvers import contour
+
+    K, M, W1, W2 = small_gun_like()
+    K = (4 * K).tocsr()
+    box = [14900 - 10j, 14900 + 10j, 15060 + 10j, 15060 - 10j]
+    nodes = [14930 + 2j, 15010 + 2j]
+    Z = (np.linspace(14900, 15060, 41)[None, :]
+         + 1j * np.linspace(-10, 10, 11)[:, None]).ravel()
+    res = {}
+    for dev in (CPU, cuda):
+        nep = _gun_from_matrices(K, M, W1, W2, device=dev)
+        contour.BATCHED_LU.update(chunks=0, nodes=0)
+        res[str(dev)] = [
+            nleigs(nep, box, Xi=GUN_SIGMA2**2 - np.logspace(-8, 8, 10000),
+                   nodes=nodes, tol=1e-10, errmeasure=StandardSPMFErrmeasure,
+                   device=dev)[0],
+            AAAeigs(nep, Z, neigs=6, shifts=nodes, tol=1e-10,
+                    errmeasure=StandardSPMFErrmeasure, device=dev)[0],
+            contour_beyn(nep, sigma=14960 + 1.5j, radius=(45.0, 10.0), N=64,
+                         neigs=6, k=8, chunk=8, device=dev,
+                         errmeasure=StandardSPMFErrmeasure)[0]]
+        assert contour.BATCHED_LU == {"chunks": 8, "nodes": 64}
+    for a, b in zip(res["cuda"], res["cpu"]):
+        assert len(a) == len(b) > 0
+        for x in a:
+            assert np.min(np.abs(b - x)) <= 1e-10 * abs(x)

@@ -116,12 +116,26 @@ def _calls(gun):
         "interpolate_pep": lambda d: neptpu_torch.interpolate_pep(
             neptpu_torch.Mder_NEP(3, lambda lam, der: np.eye(3) * lam),
             [0.0, 1.0], device=d),
+        "nleigs": lambda d: neptpu_torch.nleigs(
+            PEP_CPU(), maxit=4, minit=2, maxdgr=5, v=np.ones(2), device=d),
+        "AAAeigs": lambda d: _partial(neptpu_torch.AAAeigs)(
+            PEP_CPU(), np.exp(2j * np.pi * np.arange(20) / 20), neigs=1,
+            maxit=2, device=d),
+        "contour_beyn": lambda d: neptpu_torch.contour_beyn(
+            PEP_CPU(), N=8, k=1, sanity_check=False, device=d),
+        "contour_block_SS": lambda d: neptpu_torch.contour_block_SS(
+            PEP_CPU(), N=8, k=1, K=1, device=d),
+        "build_pencil": lambda d: neptpu_torch.build_pencil(
+            neptpu_torch.CORKPencil.from_nep(
+                PEP_CPU(), neptpu_torch.IarCorkLinearization(d=3)),
+            device=d),
     }
 
 
 GALLERY_NAMES = ["dep0", "dep0_sparse", "dep0_tridiag", "pep0", "pep0_sym",
                  "pep0_sparse", "qep_fixed_eig", "dep1", "dep_symm_double",
-                 "dep_double"]
+                 "dep_double", "dep_distributed",
+                 "nlevp_native_loaded_string"]
 NEWTONS = ["newton", "augnewton", "resinv", "quasinewton", "newtonqr",
            "implicitdet"]
 
@@ -129,6 +143,13 @@ NEWTONS = ["newton", "augnewton", "resinv", "quasinewton", "newtonqr",
 def DEP_CPU():
     """A small delay problem that lives on the CPU."""
     return neptpu_torch.nep_gallery("dep0_tridiag", 40, device=CPU)
+
+
+def PEP_CPU():
+    """A small quadratic problem that lives on the CPU."""
+    return neptpu_torch.PEP([np.array([[1.0, 3], [5, 6]]),
+                             np.array([[3.0, 4], [6, 6]]), np.eye(2)],
+                            device=CPU)
 
 
 def _partial(solver):
@@ -154,7 +175,8 @@ ENTRY_POINTS = ["nep_gallery_gun_like", "nep_gallery_waveguide", "PEP",
                 "LowRankFactorizedNEP", "iar_real_spmf_deflated",
                 "DeflationOps.build", "iar_chebyshev", "ilan",
                 "infbilanczos", "blocknewton", "broyden", "REP",
-                "interpolate_pep"] + NEWTONS + [
+                "interpolate_pep", "nleigs", "AAAeigs", "contour_beyn",
+                "contour_block_SS", "build_pencil"] + NEWTONS + [
                     f"nep_gallery_{g}" for g in GALLERY_NAMES]
 
 

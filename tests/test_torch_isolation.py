@@ -64,8 +64,27 @@ neptpu_torch.iar_real_spmf_deflated(
 neptpu_torch.iar_chebyshev(neptpu_torch.nep_gallery('dep0', device='cpu'),
                            neigs=1, maxit=10, v=[1.0] * 5, tol=1e-8,
                            device='cpu')
-for name in neptpu_torch.__all__:
-    getattr(neptpu_torch, name)
+import neptpu_torch.solvers.nleigs, neptpu_torch.solvers.aaa
+import neptpu_torch.solvers.contour, neptpu_torch.solvers.rk
+import neptpu_torch.transforms.cork, neptpu_torch.models.gallery.distributed
+pep = neptpu_torch.PEP([np.array([[1.0, 3], [5, 6]]),
+                        np.array([[3.0, 4], [6, 6]]), np.eye(2)], device='cpu')
+neptpu_torch.nleigs(pep, [-10 - 2j, 10 - 2j, 10 + 2j, -10 + 2j], maxit=10,
+                    v=np.ones(2) + 0j, blksize=5, device='cpu')
+neptpu_torch.AAAeigs(
+    neptpu_torch.nep_gallery('nlevp_native_loaded_string', device='cpu'),
+    np.linspace(0.01, 50, 200) + 0j, neigs=2, shifts=[4.0 + 0j], maxit=20,
+    check_error_every=5, device='cpu')
+dd = neptpu_torch.nep_gallery('dep_distributed', device='cpu')
+neptpu_torch.contour_beyn(dd, radius=1.5, neigs=2, N=32, k=3,
+                          sanity_check=False, device='cpu')
+neptpu_torch.contour_block_SS(dd, radius=1.5, k=2, K=2, N=32, device='cpu')
+neptpu_torch.build_pencil(neptpu_torch.CORKPencil.from_nep(
+    pep, neptpu_torch.IarCorkLinearization(d=4)), device='cpu')
+for mod in (neptpu_torch, neptpu_torch.solvers, neptpu_torch.transforms,
+            neptpu_torch.solvers.rk):
+    for name in mod.__all__:
+        getattr(mod, name)
 nep = neptpu_torch.nep_gallery('waveguide', nx=5, nz=3, neptype='SPMF',
                                device='cpu')
 bad = sorted(m for m in sys.modules
