@@ -102,7 +102,25 @@ Phases, a few informative lines each (any failure exits non-zero):
 5. refine-chip: the gun_like candidates refined again on the card
    (``BatchedShiftSMW``: float32 factors + float64 iterative refinement)
    against the host backend: >= 10 distinct at 1e-9, eigenvalues within rel
-   1e-9 of the host backend's.
+   1e-9 of the host backend's;
+6. wep-native: the waveguide's native form ``WEP_FD`` at n = 11655
+   (JARLEBRING, complex128): ``resinv`` with the factorized Schur solver
+   (the complement assembled dense, 2.1 GB, one LU on the card) onto the
+   pinned eigenvalue within 1e-9, ``iar`` (>= 3 pairs, one within 1e-10 of
+   it), GMRES with the FFT-Sylvester SMW preconditioner (N = 21) to a
+   relative residual < 1e-8, and the SPMF form's merged bank (the float64
+   pair kernel) against the native Mlincomb (rel 1e-12) and at the pair
+   (backward error <= 1e-10); within 120 s;
+7. complex-scan: ``tiar_jitted_spmf`` on gun_like (>= 4 distinct pairs at
+   backward error 1e-9 on the pinned oracle, one float64 pair launch a
+   step) and ``iar_jitted``/``tiar_jitted`` on the float64 delay problem
+   (6 pairs each at backward error <= 1e-10, within rel 1e-6 of float64
+   ``iar_real``); within 90 s;
+8. gallery: every gallery problem this slice ports built on the card, the
+   registry identity Mlincomb = Mder v, and the pinned oracles
+   (``real_quadratic``, ``orr_sommerfeld``, the mathieu ``periodicdde``,
+   ``bem_fichera``, fiber, cd_player, hadeler, pdde_stability, beam);
+   within 60 s.
 
 With ``--profile``, one shift's factorization and scan of gun_like and of wep
 run once more under ``torch.profiler`` (device busy share, time by kernel),
@@ -481,9 +499,12 @@ def _us(ms):
     return "n/a" if ms is None else f"{ms * 1e3:.2f}"
 
 
-def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None):
+def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
+                        extra=None):
     """Both kernels vs. their plain twins; returns rows keyed by shape.
-    ``parent``: a :class:`ParentBody` to time in turns beside the kernels."""
+    ``parent``: a :class:`ParentBody` to time in turns beside the kernels;
+    ``extra``: more banks by name, held in float64 (the gallery problems'
+    DIA banks)."""
     from neptpu_torch.ops.sparse import make_term_bank
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -515,7 +536,10 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None):
         ("dep40 f64", torch.float64, d40[1], d40[2], d40[0], 1e-12, True),
         ("headline bf16", bf16, head_offs, HEADLINE_N, HEADLINE_M, 1e-5, True),
         ("dep bf16", bf16, dp[1], dp[2], dp[0], 1e-5, True),
-    ]
+        # the wep bank in float64: the native waveguide's cross-format check
+        ("wep f64", torch.float64, wm[1], wm[2], wm[0], 1e-12, True),
+    ] + [(f"{key} f64", bank.data.to(torch.float64), bank.offsets, None,
+          None, 1e-12, True) for key, bank in (extra or {}).items()]
     # the launch floor: an empty kernel through the same ctypes route, as
     # the host launches it and under graph replay
     floor_ms = _median_ms(torch, lambda: dia_kernel.empty_launch(DEVICE))
@@ -1970,6 +1994,481 @@ def phase_profile(torch, trace_path, key, make_nep, sigma, gamma, maxit,
                   "time", flush=True)
 
 
+# [wep-native]: the waveguide's native form at the wep configuration's size
+# (JARLEBRING, nx = 109, nz = 105, n = 11655), the pinned eigenvalue of
+# tests/test_wep.py:59 and the SMW preconditioner's N = 21 z-domains
+WEP_NATIVE = dict(nx=109, nz=105, sigma=-3 - 3.5j, N=21, budget=120.0,
+                  ref=-2.743228671961724 - 3.1439375599649972j)
+# [complex-scan]: the complex-dtype scans, gun_like at the gun shift and the
+# delay problem of [dep] at its shift
+COMPLEX_SCAN = dict(maxit=60, neigs=6, tol=1e-9, check_every=20, need=4,
+                    dep_tol=1e-10, budget=90.0)
+# [gallery]: every gallery problem this slice ports, at the sizes of its
+# tests; (name, args, kwargs, point) of the registry identity
+# Mlincomb(lam, v) = Mder(lam) v (tests/test_gallery_sweep.py:12-41)
+GALLERY_SWEEP = [
+    ("real_quadratic", (), {}, -3.0), ("qdep0", (), {}, 0.3),
+    ("qdep1", (), {}, 0.3), ("neuron0", (), {}, 0.3),
+    ("beam", (40,), {}, -1.0), ("sine", (), {}, 0.1),
+    ("schrodinger_movebc", (120,), {}, -3.0),
+    ("nlevp_native_cd_player", (), {}, 0.3),
+    ("nlevp_native_fiber", (), {}, 1e-6),
+    ("nlevp_native_hadeler", (200,), {}, 0.3),
+    ("nlevp_native_pdde_stability", (20,), {}, 0.3),
+    ("periodicdde", (), {"name": "mathieu"}, -0.24),
+    ("bem_fichera", (1,), {}, 3.0), ("orr_sommerfeld", (24,), {}, 0.3)]
+GALLERY_BUDGET = 60.0
+
+
+def gallery_dia_banks(torch):
+    """The DIA bank of the one [gallery] problem that holds one at the
+    phase's sizes (fiber; ``schrodinger_movebc`` at n = 120 gets a CSR
+    bank): the kernel is held against its twin at that shape too."""
+    from neptpu_torch import nep_gallery
+
+    return {"fiber": nep_gallery("nlevp_native_fiber", device=DEVICE).bank}
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+class _Count:
+    """A logger counting iterations (the protocol solvers call
+    ``iteration`` once per step)."""
+
+    def __init__(self):
+        self.n = 0
+
+    def iteration(self, *args, **kwargs):
+        self.n += 1
+
+    def info(self, *args, **kwargs):
+        pass
+
+
+def phase_wep_native(torch, dia_kernel, cfg=WEP_NATIVE):
+    """The native waveguide ``WEP_FD`` at n = 11655, complex128, on the
+    card (tests/test_wep.py:59-107 at full size):
+
+    (a) ``resinv`` from lambda = -3 - 3.5i, v = 1/sqrt(n), the factorized
+        Schur solver (the complement assembled dense and LU-factored on the
+        card), errmeasure: distance to the pinned eigenvalue, tol 1e-12 —
+        gates |lambda - ref| < 1e-9 and ||M(lambda) v|| / ||v|| < 1e-10;
+    (b) ``iar`` at sigma, neigs 3, maxit 100, tol 1e-8, factorized — gates
+        >= 3 pairs, one within 1e-10 of ref;
+    (c) GMRES with the SMW preconditioner (N = 21, mm = 525), reltol 1e-10
+        on a seeded b — gate ||M(sigma) x - b|| / ||b|| < 1e-8; GMRES steps,
+        SMW setup seconds and seconds per preconditioner apply printed;
+    (d) the SPMF form of the same problem: (a)'s pair through the merged
+        bank (the float64 re/im pair kernel, one launch an apply) against
+        the native Mlincomb — gates: on a seeded vector rel 1e-12, at the
+        eigenpair a difference <= 1e-12 of the backward-error scale
+        sum_i |f_i(lambda)| ||A_i||_F and a backward error <= 1e-10.
+
+    Seconds of the Schur assembly, its LU, each solver, and the peak device
+    memory printed; the phase within ``cfg["budget"]`` seconds.  Returns the
+    launch counts of the path."""
+    from neptpu_torch import (EigvalReferenceErrmeasure, WEPLinSolverCreator,
+                              compute_Mlincomb, iar, nep_gallery, resinv)
+    from neptpu_torch.models.gallery import waveguide as wg
+    from neptpu_torch.ops.mixed import make_mixed_bank
+    from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
+                                                spmf_fun_scalars)
+
+    sigma, ref = cfg["sigma"], cfg["ref"]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dia_kernel.DIA_SPMV.reset_counts()
+    t_phase = time.perf_counter()
+    nep, t_build = _timed(torch, lambda: nep_gallery(
+        "waveguide", nx=cfg["nx"], nz=cfg["nz"],
+        benchmark_problem="JARLEBRING", neptype="WEP", device=DEVICE))
+    n = nep.n
+    check(n == 11655 and isinstance(nep, wg.WEP_FD),
+          f"wep-native: built {type(nep).__name__} of size {n}")
+    S, t_schur = _timed(torch, lambda: wg.construct_WEP_schur_complement(
+        nep, sigma))
+    lu, t_lu = _timed(torch, lambda: torch.linalg.lu_factor(S))
+    check(bool(torch.isfinite(lu[0]).all()), "wep-native: non-finite LU")
+    print(f"[wep-native] WEP_FD n={n} (interior {nep.nx}x{nep.nz}) built in "
+          f"{t_build:.3f} s; Schur complement {tuple(S.shape)} complex128 "
+          f"({S.numel() * 16 / 1e9:.2f} GB) assembled in {t_schur:.3f} s, "
+          f"LU in {t_lu:.3f} s", flush=True)
+    del S, lu
+
+    # (a) resinv with the factorized Schur solver
+    v0 = np.ones(n) / np.sqrt(n)
+    count = _Count()
+    (lam, v), t_a = _timed(torch, lambda: resinv(
+        nep, lam=sigma, v=v0, errmeasure=EigvalReferenceErrmeasure(nep, ref),
+        tol=1e-12, linsolvercreator=WEPLinSolverCreator(), logger=count,
+        device=DEVICE))
+    lam = complex(lam)
+    res = float(torch.linalg.vector_norm(compute_Mlincomb(nep, lam, v))
+                / torch.linalg.vector_norm(v))
+    print(f"[wep-native] (a) resinv: lambda {lam} in {t_a:.3f} s, "
+          f"{count.n} iterations; |lambda - ref| {abs(lam - ref):.3e} (gate "
+          f"1e-9), ||M v||/||v|| {res:.3e} (gate 1e-10)", flush=True)
+    check(abs(lam - ref) < 1e-9 and res < 1e-10,
+          f"wep-native resinv: |lambda - ref| {abs(lam - ref):.3e}, "
+          f"residual {res:.3e}")
+
+    # (b) iar with the factorized Schur solver
+    (lams, Q, _), t_b = _timed(torch, lambda: iar(
+        nep, sigma=sigma, neigs=3, maxit=100, v=v0, tol=1e-8,
+        linsolvercreator=WEPLinSolverCreator(solver_type=":factorized"),
+        device=DEVICE))
+    lams = np.asarray(lams)
+    gap = float(np.min(np.abs(lams - ref))) if len(lams) else np.inf
+    print(f"[wep-native] (b) iar: {len(lams)} pairs "
+          f"{np.array2string(lams, precision=12)} in {t_b:.3f} s; nearest "
+          f"to ref at {gap:.3e} (gate 1e-10)", flush=True)
+    check(len(lams) >= 3 and gap < 1e-10,
+          f"wep-native iar: {len(lams)} pairs, nearest to ref {gap:.3e}")
+    del Q
+
+    # (c) GMRES + SMW preconditioner
+    precond, t_smw = _timed(torch, lambda: wg.wep_generate_preconditioner(
+        nep, cfg["N"], sigma))
+    mm = cfg["N"] ** 2 + 4 * cfg["N"]
+    x_int = torch.randn(nep.nx * nep.nz, dtype=torch.complex128,
+                        device=DEVICE)
+    apply_ms = _median_ms(torch, lambda: precond(x_int), reps=10, inner=5)
+    b = np.random.default_rng(2).standard_normal(n) + 0j
+    solver = wg.WEPGMRESLinSolver(nep, sigma, preconditioner=precond,
+                                  reltol=1e-10)
+    x, t_c = _timed(torch, lambda: solver.solve(b))
+    r = compute_Mlincomb(nep, sigma, x).cpu().numpy()
+    rel = float(np.linalg.norm(r - b) / np.linalg.norm(b))
+    print(f"[wep-native] (c) GMRES + SMW(N={cfg['N']}, mm={mm}): SMW setup "
+          f"{t_smw:.3f} s (one batched Sylvester FFT solve of {mm} columns, "
+          f"one {mm}^2 LU), preconditioner apply {apply_ms:.3f} ms; solve "
+          f"{t_c:.3f} s, GMRES steps {solver.iterations} (exit "
+          f"{solver.info}); ||M x - b||/||b|| {rel:.3e} (gate 1e-8)",
+          flush=True)
+    check(rel < 1e-8, f"wep-native GMRES: relative residual {rel:.3e}")
+
+    # (d) the SPMF form through the merged bank (float64 pair kernel)
+    spmf = nep_gallery("waveguide", nx=cfg["nx"], nz=cfg["nz"],
+                       benchmark_problem="JARLEBRING", neptype="SPMF",
+                       device=DEVICE)
+    mats, fv = collect_spmf_terms(spmf)
+    bank = make_mixed_bank(mats, dtype=np.float64, device=DEVICE)
+    m, offs, nb = wep_bank_shape(WEP)
+    check(tuple(bank.inner.data.shape) == (m, len(offs), nb)
+          and tuple(bank.inner.offsets) == tuple(offs),
+          f"wep-native: SPMF main bank {tuple(bank.inner.data.shape)} "
+          "differs from the checked wep shape")
+    fro = np.array([np.sqrt(np.abs(A.multiply(A.conj())).sum())
+                    for A in mats])
+    before = dict(dia_kernel.DIA_SPMV.entry_counts)
+
+    def through_bank(lam, u):
+        w = torch.as_tensor(spmf_fun_scalars(fv, lam), device=DEVICE)
+        return bank.lincomb_apply(u[:, None] * w[None, :])
+
+    u = torch.as_tensor(np.random.default_rng(4).standard_normal(n) + 0j,
+                        device=DEVICE)
+    y1, y2 = through_bank(lam, u), compute_Mlincomb(nep, lam, u)
+    rel_rand = float(torch.linalg.vector_norm(y1 - y2)
+                     / torch.linalg.vector_norm(y2))
+    vn = v / torch.linalg.vector_norm(v)
+    y1, y2 = through_bank(lam, vn), compute_Mlincomb(nep, lam, vn)
+    scale = float(np.abs(spmf_fun_scalars(fv, lam)) @ fro)
+    diff = float(torch.linalg.vector_norm(y1 - y2)) / scale
+    bwd = float(torch.linalg.vector_norm(y1)) / scale
+    pair64 = (dia_kernel.DIA_SPMV.entry_counts["dia_lincomb_pair_f64"]
+              - before["dia_lincomb_pair_f64"])
+    print(f"[wep-native] (d) SPMF form ({len(mats)} terms, main bank "
+          f"{m}x{len(offs)}x{nb}): on a seeded vector rel {rel_rand:.3e} "
+          f"(gate 1e-12); at (a)'s pair difference {diff:.3e} of the scale "
+          f"{scale:.6e} (gate 1e-12), backward error through the bank "
+          f"{bwd:.3e} (gate 1e-10); f64 pair launches {pair64}", flush=True)
+    check(rel_rand <= 1e-12 and diff <= 1e-12 and bwd <= 1e-10,
+          f"wep-native SPMF vs native: rel {rel_rand:.3e}, diff {diff:.3e}, "
+          f"backward {bwd:.3e}")
+    check(pair64 == 2, f"wep-native: {pair64} f64 pair launches for 2 "
+                       "bank applies")
+    torch.cuda.synchronize()
+    launched = dict(dia_kernel.DIA_SPMV.entry_counts)
+    t_phase = time.perf_counter() - t_phase
+    print(f"[wep-native] phase {t_phase:.3f} s (budget {cfg['budget']:g} s); "
+          f"peak_device_mem {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          "GiB", flush=True)
+    check(t_phase <= cfg["budget"],
+          f"wep-native took {t_phase:.1f} s (> {cfg['budget']:g} s)")
+    return launched
+
+
+def phase_complex_scan(torch, dia_kernel, gun, dep_nep, found,
+                       cfg=COMPLEX_SCAN):
+    """The complex-dtype scans on the card, complex128, each through its
+    entry point with the launch counts set to 0 just before and read just
+    after:
+
+    * ``tiar_jitted_spmf`` on gun_like (n = 9956) at SIGMA, GAMMA, maxit 60,
+      neigs 6, checks every 20 steps with the host backward error at tol
+      1e-9 — gates >= ``need`` distinct pairs under tol, each within rel 1e-8
+      of a pinned eigenvalue, one float64 pair launch a step;
+    * ``iar_jitted`` and ``tiar_jitted`` on ``dep_symm_double`` n = 1e4 at
+      sigma = -1, maxit 60, neigs 6, errmeasure the delay problem's backward
+      error at tol 1e-10 — gates: 6 pairs each, backward error <= 1e-10,
+      rel gap <= 1e-6 to float64 ``iar_real``'s eigenvalues (modulo
+      conjugation), one float64 pair launch a step.
+
+    The phase within ``cfg["budget"]`` seconds.  Returns the launch counts
+    by path."""
+    from neptpu_torch import iar_jitted, nep_gallery, tiar_jitted
+    from neptpu_torch import tiar_jitted_spmf
+
+    out = {}
+    t_phase = time.perf_counter()
+    backward = gun["backward"]
+    nep = nep_gallery("gun_like", device=DEVICE)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dia_kernel.DIA_SPMV.reset_counts()
+    (lams, Q, info), t_gun = _timed(torch, lambda: tiar_jitted_spmf(
+        nep, sigma=SIGMA, gamma=GAMMA, maxit=cfg["maxit"], neigs=cfg["neigs"],
+        tol=cfg["tol"], check_error_every=cfg["check_every"],
+        errmeasure=backward, return_info=True, device=DEVICE))
+    launched = dict(dia_kernel.DIA_SPMV.entry_counts)
+    out["gun_like"] = launched
+    errs = np.array([backward(complex(x), Q[:, i])
+                     for i, x in enumerate(lams)])
+    sel = distinct_below_tol(lams, errs, cfg["tol"])
+    gaps = np.array([np.min(np.abs(GUN_LIKE_PINNED - lams[j]))
+                     / abs(lams[j]) for j in sel])
+    pair64 = launched["dia_lincomb_pair_f64"]
+    print(f"[complex-scan] tiar_jitted_spmf gun_like n={nep.n} complex128: "
+          f"{len(sel)} distinct pairs under {cfg['tol']:g} "
+          f"{np.array2string(np.asarray(lams)[sel], precision=10)} in "
+          f"{t_gun:.3f} s (LU {info['t_factorize']:.3f} s, scan "
+          f"{info['t_scan']:.3f} s, {info['k_done']} steps, nconv "
+          f"{info['nconv']}); max backward error "
+          f"{max(errs, default=np.nan):.3e}; max rel gap to the pinned "
+          f"oracle {max(gaps, default=np.nan):.3e} (gate 1e-8); f64 pair "
+          f"launches {pair64}; peak_device_mem "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    check(len(sel) >= cfg["need"] and all(gaps <= 1e-8),
+          f"complex-scan gun_like: {len(sel)} distinct pairs, gaps {gaps}")
+    check(pair64 == info["k_done"] and sum(launched.values()) == pair64,
+          f"complex-scan gun_like: launches {launched} for "
+          f"{info['k_done']} steps")
+    del nep, Q
+
+    bw_dep, _ = dep_backward(dep_nep)
+
+    def dep_err(lam, q):
+        return bw_dep(complex(lam), q.cpu().numpy() if hasattr(q, "cpu")
+                      else q)
+
+    runs = (("iar_jitted", lambda: iar_jitted(
+                dep_nep, sigma=DEP["sigma"], maxit=cfg["maxit"],
+                neigs=cfg["neigs"], tol=cfg["dep_tol"], errmeasure=dep_err,
+                device=DEVICE)[:2]),
+            ("tiar_jitted", lambda: tiar_jitted(
+                dep_nep, sigma=DEP["sigma"], maxit=cfg["maxit"],
+                neigs=cfg["neigs"], tol=cfg["dep_tol"], errmeasure=dep_err,
+                device=DEVICE)))
+    for name, run in runs:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dia_kernel.DIA_SPMV.reset_counts()
+        (lams, Q), seconds = _timed(torch, run)
+        launched = dict(dia_kernel.DIA_SPMV.entry_counts)
+        out[f"dep {name}"] = launched
+        lams = np.asarray(lams)
+        Qh = Q.cpu().numpy() if hasattr(Q, "cpu") else np.asarray(Q)
+        errs = [dep_err(x, Qh[:, i]) for i, x in enumerate(lams)]
+        gaps = [_conj_gap(x, found) for x in lams]
+        pair64 = launched["dia_lincomb_pair_f64"]
+        print(f"[complex-scan] {name} dep_symm_double n={dep_nep.n} "
+              f"complex128 sigma={DEP['sigma']}: {len(lams)} pairs "
+              f"{np.array2string(lams, precision=10)} in {seconds:.3f} s; "
+              f"max backward error {max(errs, default=np.nan):.3e} (gate "
+              f"{cfg['dep_tol']:g}); max rel gap to float64 iar_real "
+              f"{max(gaps, default=np.nan):.3e} (gate 1e-6); f64 pair "
+              f"launches {pair64}; peak_device_mem "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        check(len(lams) == cfg["neigs"] and max(errs) <= cfg["dep_tol"]
+              and max(gaps) <= 1e-6,
+              f"complex-scan {name}: {len(lams)} pairs, backward "
+              f"{max(errs, default=np.nan):.3e}, gap "
+              f"{max(gaps, default=np.nan):.3e}")
+        check(pair64 >= 1 and sum(launched.values()) == pair64,
+              f"complex-scan {name}: launches {launched}")
+        if name == "iar_jitted":
+            check(pair64 == cfg["maxit"],
+                  f"complex-scan iar_jitted: {pair64} pair launches for "
+                  f"{cfg['maxit']} steps")
+    t_phase = time.perf_counter() - t_phase
+    print(f"[complex-scan] phase {t_phase:.3f} s (budget {cfg['budget']:g} "
+          "s)", flush=True)
+    check(t_phase <= cfg["budget"],
+          f"complex-scan took {t_phase:.1f} s (> {cfg['budget']:g} s)")
+    return out
+
+
+def phase_gallery(torch, dia_kernel):
+    """Every gallery problem this slice ports, built on the card through
+    ``nep_gallery`` and held to the numbers its tests pin:
+
+    * the registry identity Mlincomb(lam, v) = Mder(lam) v at the points of
+      tests/test_gallery_sweep.py, rel 1e-12;
+    * ``real_quadratic``'s four real eigenvalues through ``polyeig``
+      (rel 1e-9); ``orr_sommerfeld`` (n = 128) through
+      ``shift_and_scale(scale=100)`` and ``tiar`` at sigma = 0.006: four
+      Table 7.1 values within rel 1e-8; the mathieu ``periodicdde`` through
+      ``resinv``: -0.24470143590830754 within 1e-10; ``bem_fichera`` (N = 1):
+      sigma_min / sigma_max of M at the pinned eigenvalue < 1e-10; the fiber
+      eigenvalue 7.139494306065948e-07 through ``augnewton`` within 1e-10;
+      ``cd_player`` (newton), ``hadeler`` (mslp), ``pdde_stability``
+      (polyeig) and ``beam`` (augnewton) pairs at their tests' residual
+      gates.
+
+    The phase within GALLERY_BUDGET seconds.  Returns the launch counts of
+    the fiber problem's path (its DIA bank: the float64 pair kernel)."""
+    from neptpu_torch import (PEP, augnewton, compute_Mlincomb,
+                              compute_resnorm, mslp, nep_gallery, newton,
+                              polyeig, resinv, shift_and_scale, tiar)
+
+    def dense(M):
+        return M.to_dense() if hasattr(M, "to_dense") else M
+
+    def _host(x):
+        return x.cpu().numpy() if hasattr(x, "cpu") else np.asarray(x)
+
+    t_phase = time.perf_counter()
+    out = {}
+    rng = np.random.default_rng(7)
+    for name, args, kw, lam in GALLERY_SWEEP:
+        dia_kernel.DIA_SPMV.reset_counts()
+        nep, t_build = _timed(torch, lambda: nep_gallery(
+            name, *args, device=DEVICE, **kw))
+        v = torch.as_tensor(rng.standard_normal(nep.n), device=DEVICE)
+        z1 = compute_Mlincomb(nep, lam, v[:, None], np.ones(1))
+        M = dense(nep.Mder(lam))
+        z2 = M @ v.to(M.dtype)
+        rel = float(torch.linalg.vector_norm(z1.reshape(-1) - z2)
+                    / torch.linalg.vector_norm(z2))
+        counts = dict(dia_kernel.DIA_SPMV.entry_counts)
+        print(f"[gallery] {name}{args or ''}{kw or ''}: n={nep.n} built in "
+              f"{t_build:.3f} s; Mlincomb vs Mder v at {lam}: rel {rel:.3e} "
+              f"(gate 1e-12); launches "
+              f"{ {k: c for k, c in counts.items() if c} }", flush=True)
+        check(rel <= 1e-12 and z1.is_cuda and M.is_cuda,
+              f"gallery {name}: Mlincomb vs Mder v rel {rel:.3e} on "
+              f"{z1.device}, {M.device}")
+        if name == "nlevp_native_fiber":
+            out[name] = counts
+    results = []
+
+    def gate(what, ok, detail):
+        results.append(what)
+        print(f"[gallery] {what}: {detail}", flush=True)
+        check(ok, f"gallery {what}: {detail}")
+
+    lams, _ = polyeig(nep_gallery("real_quadratic", device=DEVICE))
+    lams = _host(lams)
+    worst = max(np.min(np.abs(lams - r)) / abs(r) for r in (
+        -2051.741417993845, -182.101627437811, -39.344930222838,
+        -4.039879577113))
+    gate("real_quadratic polyeig", worst <= 1e-9,
+         f"four real eigenvalues, max rel gap {worst:.3e} (gate 1e-9)")
+
+    nep = nep_gallery("orr_sommerfeld", 128, device=DEVICE)
+    nep1 = shift_and_scale(nep, scale=100.0)
+    Av = [dense(A) for A in nep1.get_Av()]
+    ms = float(torch.linalg.matrix_norm(Av[-1]))
+    nep2 = PEP([(A / ms).cpu().numpy() for A in Av], device=DEVICE)
+    (lam, _, _), t = _timed(torch, lambda: tiar(
+        nep2, sigma=0.006, v=np.ones(nep.n), neigs=10, maxit=200, tol=1e-14,
+        device=DEVICE))
+    lam = 100.0 * np.asarray(lam)
+    worst = max(np.min(np.abs(lam - r)) / abs(r) for r in (
+        0.30865495875240445 + 0.008960297181538185j,
+        0.3765784040323032 + 0.09959915134763689j,
+        0.4087137042139992 + 0.15906877547743775j,
+        -0.2863097014631293 - 0.9011417554715162j))
+    gate("orr_sommerfeld tiar", worst <= 1e-8,
+         f"n={nep.n}, four Table 7.1 values, max rel gap {worst:.3e} (gate "
+         f"1e-8) in {t:.3f} s")
+
+    nep = nep_gallery("periodicdde", name="mathieu", device=DEVICE)
+    (lam, v), t = _timed(torch, lambda: resinv(
+        nep, lam=-0.2447, v=np.array([0.970208 + 0j, -0.242272 + 0j]),
+        tol=np.finfo(float).eps * 10, maxit=100, device=DEVICE))
+    err = abs(complex(lam) + 0.24470143590830754)
+    gate("periodicdde mathieu resinv", err < 1e-10,
+         f"lambda {complex(lam)}, |lambda - ref| {err:.3e} (gate 1e-10) in "
+         f"{t:.3f} s")
+
+    nep = nep_gallery("bem_fichera", 1, device=DEVICE)
+    M = nep.Mder(8.790558462139456 - 0.010815457827738698j)
+    s = torch.linalg.svdvals(M).cpu().numpy()
+    gate("bem_fichera", s[-1] / s[0] < 1e-10,
+         f"n={nep.n}, sigma_min/sigma_max at the pinned eigenvalue "
+         f"{s[-1] / s[0]:.3e} (gate 1e-10)")
+
+    nep = nep_gallery("nlevp_native_fiber", device=DEVICE)
+    dia_kernel.DIA_SPMV.reset_counts()
+    (lam, v), t = _timed(torch, lambda: augnewton(
+        nep, lam=7.14e-7, v=np.ones(nep.n), maxit=100, armijo_factor=0.5,
+        armijo_max=10, device=DEVICE))
+    out["nlevp_native_fiber"] = {
+        k: out["nlevp_native_fiber"].get(k, 0) + c
+        for k, c in dia_kernel.DIA_SPMV.entry_counts.items()}
+    err = abs(complex(lam) - 7.139494306065948e-07)
+    gate("fiber augnewton", err < 1e-10,
+         f"n={nep.n}, lambda {complex(lam)}, |lambda - ref| {err:.3e} (gate "
+         f"1e-10) in {t:.3f} s")
+
+    def unit_res(nep, lam, v):
+        return float(compute_resnorm(nep, lam, v)
+                     / torch.linalg.vector_norm(v))
+
+    nep = nep_gallery("nlevp_native_cd_player", device=DEVICE)
+    lam, v = newton(nep, lam=-1e5, v=np.ones(nep.n), maxit=50, tol=1e-10,
+                    device=DEVICE)
+    r = unit_res(nep, lam, v)
+    gate("cd_player newton", r < 1e-6, f"lambda {complex(lam)}, residual "
+                                       f"{r:.3e} (gate 1e-6)")
+    nep = nep_gallery("nlevp_native_hadeler", device=DEVICE)
+    lam, v = mslp(nep, lam=10.0, tol=1e-10, device=DEVICE)
+    r = float(compute_resnorm(nep, lam, v))
+    gate("hadeler mslp", r < 1e-6, f"lambda {complex(lam)}, residual "
+                                   f"{r:.3e} (gate 1e-6)")
+    nep = nep_gallery("nlevp_native_pdde_stability", device=DEVICE)
+    lams, V = polyeig(nep)
+    lams = _host(lams)
+    i = int(np.argmin(np.abs(lams - 1.0)))
+    r = unit_res(nep, lams[i], V[:, i])
+    gate("pdde_stability polyeig", r < 1e-8,
+         f"n={nep.n}, lambda {complex(lams[i])}, residual {r:.3e} (gate "
+         "1e-8)")
+    nep = nep_gallery("beam", 50, device=DEVICE)
+    lam, v = augnewton(nep, lam=-1.0, v=np.ones(nep.n), maxit=50, tol=1e-10,
+                       device=DEVICE)
+    r = float(compute_resnorm(nep, lam, v)) / float(
+        torch.linalg.matrix_norm(dense(nep.Mder(lam))))
+    gate("beam augnewton", r < 1e-8, f"lambda {complex(lam)}, residual over "
+                                     f"||M|| {r:.3e} (gate 1e-8)")
+    t_phase = time.perf_counter() - t_phase
+    print(f"[gallery] phase {t_phase:.3f} s (budget {GALLERY_BUDGET:g} s), "
+          f"{len(GALLERY_SWEEP)} problems built, {len(results)} oracles",
+          flush=True)
+    check(t_phase <= GALLERY_BUDGET,
+          f"gallery took {t_phase:.1f} s (> {GALLERY_BUDGET:g} s)")
+    return out
+
+
 def main():
     import argparse
 
@@ -2009,7 +2508,8 @@ def main():
         print(f"[kernel] no copy of the parent commit under {args.parent}: "
               "its kernel body is not measured in this run", flush=True)
     gun_bank = nep_gallery("gun_like", device=DEVICE).nep1.bank
-    rows = phase_kernel_checks(torch, dia_kernel, gun_bank, parent=parent)
+    rows = phase_kernel_checks(torch, dia_kernel, gun_bank, parent=parent,
+                               extra=gallery_dia_banks(torch))
 
     # launches by C entry point on each main path (counts set to 0 just
     # before a path is driven and read just after)
@@ -2061,12 +2561,21 @@ def main():
                   "broyden": "dep40"}.get(name, "dep-krylov")
         paths[f"{prefix} {name}"] = {
             k: launched.get(k, 0) for k in dia_kernel.DIA_SPMV.entry_counts}
+    dep_nep = dep["nep0"]  # the float64 delay problem, for [complex-scan]
     del dep
     # the rational-Krylov, AAA and contour family on gun_like
     for name, launched in phase_rational(torch, dia_kernel, gun).items():
         paths[f"rational {name}"] = {
             k: launched.get(k, 0) for k in dia_kernel.DIA_SPMV.entry_counts}
     phase_refine_chip(torch, gun)
+    # this slice's paths: the native waveguide, the complex-dtype scans and
+    # the rest of the gallery
+    paths["wep-native"] = phase_wep_native(torch, dia_kernel)
+    for key, launched in phase_complex_scan(torch, dia_kernel, gun, dep_nep,
+                                            found).items():
+        paths[f"complex-scan {key}"] = launched
+    for key, launched in phase_gallery(torch, dia_kernel).items():
+        paths[f"gallery {key}"] = launched
     if args.profile:
         phase_profile(torch, args.profile, "gun_like",
                       lambda: nep_gallery("gun_like", device=DEVICE), SIGMA,
@@ -2085,7 +2594,7 @@ def main():
                 if k.startswith(on)}
 
     every = ("spmv", "gun_like", "wep", "dep", "spmf-deflated",
-             "shifted-dep", "rational")
+             "shifted-dep", "rational", "complex-scan", "gallery")
     f3264 = ("_f32", "_f64")
     # name, kernel-check row, C entry points, main paths that hand the kernel
     # this shape: first each wrapper at the shape of its busiest path (the
@@ -2102,10 +2611,12 @@ def main():
          ["dia_lincomb_pair_f32"], ("dep",)),
         ("dia_lincomb_f64@dep", "dep f64", ["dia_lincomb_f64"], ("dep",)),
         ("dia_lincomb_pair_f64@dep", "dep f64 pair",
-         ["dia_lincomb_pair_f64"], ("dep ", "dep-")),
+         ["dia_lincomb_pair_f64"], ("dep ", "dep-", "complex-scan dep")),
         ("dia_lincomb_pair_f64@gun_like", "gun_like f64 pair",
          ["dia_lincomb_pair_f64"],
-         ("spmf-deflated gun_like", "rational")),
+         ("spmf-deflated gun_like", "rational", "complex-scan gun_like")),
+        ("dia_lincomb_pair_f64@wep", "wep f64 pair",
+         ["dia_lincomb_pair_f64"], ("wep-native",)),
         ("dia_lincomb_pair_f64@shifted_dep", "shifted dep f64 pair",
          ["dia_lincomb_pair_f64"], ("shifted-dep",)),
         ("dia_lincomb_pair_f64@dep40", "dep40 f64 pair",
@@ -2118,6 +2629,15 @@ def main():
         ("dia_lincomb_pair_bf16@dep", "dep bf16 pair",
          ["dia_lincomb_pair_bf16"], ("dep",)),
     ]
+    # the gallery problems' DIA banks: a row for each entry point their
+    # paths launched, at least one per bank
+    for key, problem in (("fiber", "nlevp_native_fiber"),):
+        gal = [(f"dia_lincomb{p}_f64@{key}", f"{key} f64{sfx}",
+                [f"dia_lincomb{p}_f64"], (f"gallery {problem}",))
+               for p, sfx in (("", ""), ("_pair", " pair"))]
+        gal = [row for row in gal if sum(launches(row[2], row[3]).values())]
+        check(len(gal) > 0, f"the {key} bank was launched on no path")
+        table += gal
     kernels = []
     for name, key, entries, on in table:
         row, by_path = rows[key], launches(entries, on)

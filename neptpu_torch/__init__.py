@@ -33,7 +33,14 @@ paths and names:
 * the rational family: ``nleigs`` (rational Krylov on a dynamic Leja-Bagby
   linearization), ``AAAeigs`` and ``svAAA``, the CORK pencils, the contour
   methods ``contour_beyn`` and ``contour_block_SS`` on batched shifted
-  solves, and the inner solvers built on them.
+  solves, and the inner solvers built on them;
+* the native waveguide ``WEP_FD`` (Sylvester-form Mlincomb, the Schur
+  complement factored dense on the device or solved by GMRES with the
+  FFT-Sylvester SMW preconditioner: ``WEPLinSolverCreator``,
+  ``wep_generate_preconditioner``), the complex-dtype scans ``iar_jitted``,
+  ``tiar_jitted`` and ``tiar_jitted_spmf``, the whole gallery (30 problems)
+  and the utilities (sparse-matrix text files, the benchmark harness, the
+  mpmath extended-precision Newton).
 
 It imports torch, numpy and scipy — never jax or neptpu.  Entry points run on
 the card unless the caller passes ``device="cpu"``
@@ -62,7 +69,9 @@ from .models.gallery import nep_gallery
 from .models.gallery.distributed import (distributed_kernel_gauss_legendre,
                                          distributed_kernel_trapezoidal,
                                          gauss_legendre_weights)
-from .models.gallery.waveguide import wep_gallery
+from .models.gallery.waveguide import (WEP, WEP_FD, WEPLinSolverCreator,
+                                       wep_gallery,
+                                       wep_generate_preconditioner)
 from .models.helpers import REP, Mder_Mlincomb_NEP, Mder_NEP
 from .models.lowrank import LowRankFactorizedNEP, LowRankMatrixAndFunction
 from .models.pep import PEP, interpolate_pep
@@ -93,6 +102,7 @@ from .solvers.contour import (MatrixGaussLegendre, MatrixIntegrator,
                               integrate_interval)
 from .solvers.iar import iar
 from .solvers.iar_chebyshev import iar_chebyshev
+from .solvers.iar_jit import iar_jitted
 from .solvers.iar_real import (DeflationOps, dep_shift_block_lu, iar_real,
                                iar_real_scan)
 from .solvers.ilan import ilan
@@ -120,6 +130,7 @@ from .solvers.sgiter import sgiter
 from .solvers.spmf_real import (iar_real_spmf, iar_real_spmf_deflated,
                                 iar_real_spmf_multishift)
 from .solvers.tiar import tiar
+from .solvers.tiar_jit import tiar_jitted, tiar_jitted_spmf
 from .solvers.tiar_real import tiar_real, tiar_real_scan, tiar_real_spmf
 from .transforms import (CORKPencil, CORKPencilLR, CorkLinearization,
                          DefaultCorkLinearization, IarCorkLinearization,
@@ -127,6 +138,7 @@ from .transforms import (CORKPencil, CORKPencilLR, CorkLinearization,
                          ShiftScaledNEP, build_pencil, low_rank_compress,
                          mobius_transform, shift_and_scale,
                          taylor_expansion_pep)
+from .utils.serialization import read_sparse_matrix, write_sparse_matrix
 
 jd = jd_betcke
 interpolate = interpolate_pep  # the reference's name
@@ -258,6 +270,15 @@ __all__ = [
     "get_Av",
     "get_fv",
     "wep_gallery",
+    "WEP",
+    "WEP_FD",
+    "WEPLinSolverCreator",
+    "wep_generate_preconditioner",
+    "iar_jitted",
+    "tiar_jitted",
+    "tiar_jitted_spmf",
+    "read_sparse_matrix",
+    "write_sparse_matrix",
     "sparse",
     "DeflationOps",
     "iar_real_spmf_deflated",

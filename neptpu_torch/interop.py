@@ -26,7 +26,8 @@ from .solvers.iar_real import DenseBlockLU
 
 __all__ = ["bank_from_arrays", "dep_from_arrays", "block_lu_from_arrays",
            "shift_solver_from_arrays", "batched_shift_solver_from_arrays",
-           "carry_from_arrays", "deflated_from_arrays", "proj_from_arrays"]
+           "carry_from_arrays", "deflated_from_arrays", "proj_from_arrays",
+           "wep_fd_from_arrays"]
 
 
 def _t(x, device, dtype=None):
@@ -196,3 +197,17 @@ def proj_from_arrays(orgnep, W, V, maxsize=None):
     pnep.set_projectmatrices(torch.as_tensor(np.asarray(W)),
                              torch.as_tensor(np.asarray(V)))
     return pnep
+
+
+def wep_fd_from_arrays(spec, device=None):
+    """A native waveguide :class:`WEP_FD` from the parts of a JAX one:
+    ``spec`` a mapping with ``nx``, ``nz``, ``hx``, ``hz``, ``Dxx``,
+    ``Dzz``, ``Dz`` (dense or scipy), ``C1``, ``C2T`` (scipy or dense),
+    ``K`` (nz x nx, already shifted by its mean, as the JAX problem stores
+    it), ``k_bar`` and the exterior wavenumbers ``Km``, ``Kp``."""
+    from .models.gallery.waveguide import WEP_FD
+
+    return WEP_FD.from_parts(
+        spec["nx"], spec["nz"], spec["hx"], spec["hz"], spec["Dxx"],
+        spec["Dzz"], spec["Dz"], spec["C1"], spec["C2T"], spec["K"],
+        spec["k_bar"], spec["Km"], spec["Kp"], device=resolve_device(device))

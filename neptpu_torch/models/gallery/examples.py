@@ -11,9 +11,16 @@ import os
 
 import numpy as np
 
-from ..dep import DEP
+from ...config import resolve_device
 
-__all__ = ["dep1", "dep_symm_double", "dep_double", "data_dir",
+from ...ops import matfun
+from ...utils.serialization import read_sparse_matrix
+from ..dep import DEP
+from ..pep import PEP
+from ..spmf import SPMF_NEP
+
+__all__ = ["dep1", "dep_symm_double", "dep_double", "real_quadratic",
+           "qdep0", "qdep1", "neuron0", "beam", "sine_nep", "data_dir",
            "read_sparse_matrix"]
 
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.dirname(
@@ -31,21 +38,6 @@ def _load_npz(path):
     with np.load(path) as z:
         return sp.csr_matrix((z["data"], z["indices"], z["indptr"]),
                              shape=tuple(z["shape"]))
-
-
-def read_sparse_matrix(filename):
-    """Text serialization: ``m n``, then the 1-based row indices, column
-    indices and values of the COO triplets."""
-    import scipy.sparse as sp
-
-    with open(filename) as f:
-        data = f.read().split()
-    m, n = int(data[0]), int(data[1])
-    c = (len(data) - 2) // 3
-    I = np.array(data[2:2 + c], dtype=np.int64) - 1
-    J = np.array(data[2 + c:2 + 2 * c], dtype=np.int64) - 1
-    V = np.array(data[2 + 2 * c:2 + 3 * c], dtype=np.float64)
-    return sp.csr_matrix(sp.coo_matrix((V, (I, J)), shape=(m, n)))
 
 
 def _load(relpath):
@@ -108,3 +100,86 @@ def dep_double(device=None):
     A0 = np.array([[0.0, 1, 0], [0, 0, 1], [-a3, -a2, -a1]])
     A1 = np.array([[0.0, 0, 0], [0, 0, 0], [-b3, -b2, -b1]])
     return DEP([A0, A1], [0.0, 1.0], device=device)
+
+
+def real_quadratic(device=None):
+    """Quadratic PEP with four known real eigenvalues."""
+    device = resolve_device(device)
+    A0 = np.array(
+        [[4.0, 0, 1, 1], [0, 2, 1, 1], [1, 1, 6, -2], [1, 1, -2, 3]])
+    A1 = np.array([[167.0, -140, 95, -131], [-140, 327, 54, 85],
+                   [95, 54, 235, -81], [-131, 85, -81, 181]])
+    A2 = np.array(
+        [[2.0, 1, -1, -1], [1, 5, -3, 2], [-1, -3, 3, 0], [-1, 2, 0, 3]])
+    return PEP([A0, A1, A2], device=device)
+
+
+def _square(S):
+    return S @ S
+
+
+def qdep0(device=None):
+    """Quadratic delay problem of the infinite bi-Lanczos paper (data
+    files ``converted_misc/qdep_infbilanczos_A{0,1}``)."""
+    device = resolve_device(device)
+    import scipy.sparse as sp
+
+    A0 = _load("converted_misc/qdep_infbilanczos_A0.txt")
+    A1 = _load("converted_misc/qdep_infbilanczos_A1.txt")
+    tau = 1.0
+    I = sp.eye(A0.shape[0], format="csr")
+    return SPMF_NEP([-I, A0, A1],
+                    [_square, matfun.eye_like,
+                     lambda S: matfun.expm(-tau * S)], device=device)
+
+
+def qdep1(device=None):
+    """Quadratic delay problem (Jarlebring/Michiels/Meerbergen)."""
+    device = resolve_device(device)
+    A0 = np.array([[0.3, -0.6, 0.0, 0.4], [-0.3, 0.4, -0.8, 1.9],
+                   [0.1, -1.6, -1.3, 0.0], [-1.4, -0.9, 0.2, 0.9]])
+    A1 = np.array([[0.8, 0.2, -1.3, -0.3], [-1.1, 0.9, 1.2, 0.5],
+                   [0.5, 0.2, -1.6, -1.3], [0.7, 0.4, -0.4, 0.0]])
+    I = np.eye(4)
+    return SPMF_NEP([I, A0, A1],
+                    [lambda S: -(S @ S), matfun.eye_like,
+                     lambda S: matfun.expm(-S)], device=device)
+
+
+def neuron0(device=None):
+    """Coupled-neuron delay differential equation (Shayer & Campbell
+    2000)."""
+    device = resolve_device(device)
+    kappa = 0.5
+    beta = -1.0
+    a21 = 2.34
+    a12 = 1.0
+    x = np.array([0.0, 0.0])
+    tauv = [0.0, 0.2, 0.2, 1.5]
+    A0 = -kappa * np.eye(2)
+    A1 = a21 * np.array([[0.0, 0.0], [1 - np.tanh(x[1]) ** 2, 0.0]])
+    A2 = a12 * np.array([[0.0, 1 - np.tanh(x[0]) ** 2], [0.0, 0.0]])
+    A3 = beta * np.diag([1 - np.tanh(x[0]) ** 2, 1 - np.tanh(x[1]) ** 2])
+    return DEP([A0, A1, A2, A3], tauv, device=device)
+
+
+def beam(n: int = 100, device=None):
+    """Delay problem modelling a beam."""
+    device = resolve_device(device)
+    import scipy.sparse as sp
+
+    h = 1.0 / n
+    ee = np.ones(n)
+    A0 = sp.diags([ee[: n - 1], -2 * ee, ee[: n - 1]], [-1, 0, 1]).tolil()
+    A0[n - 1, n - 1] = 1 / h
+    A0[n - 1, n - 2] = -1 / h
+    A0 = A0.tocsr()
+    A1 = sp.csr_matrix(([1.0], ([n - 1], [n - 1])), shape=(n, n))
+    return DEP([A0, A1], [0.0, 1.0], device=device)
+
+
+def sine_nep(device=None):
+    """PEP + rank-2 matrix-sine term (data files ``converted_sine``)."""
+    from .lowrank_sum import make_sine_nep
+
+    return make_sine_nep(_load, device=device)

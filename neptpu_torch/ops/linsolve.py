@@ -5,7 +5,9 @@ objects that decide when factorizations happen.
   lam)`` in device memory, factored once and reused over the solver's
   iterations; ``batched_lu_factor``/``batched_lu_solve`` do the same over a
   leading shift axis (one stacked LU per node set).
-* matrix-free: GMRES over ``compute_Mlincomb`` matvecs.
+* matrix-free: GMRES over ``compute_Mlincomb`` matvecs (JAX's incremental
+  GMRES); :func:`gmres_restarted` is scipy's restarted GMRES, which the
+  waveguide's Schur-complement solver runs as the JAX package does.
 * ``SparseFactorizeLinSolver``: scipy ``splu`` of the sparse M(lam) on the
   host, for float64 reference runs.
 
@@ -39,6 +41,7 @@ __all__ = [
     "DefaultLinSolverCreator",
     "create_linsolver",
     "gmres",
+    "gmres_restarted",
     "batched_lu_factor",
     "batched_lu_solve",
 ]
@@ -236,6 +239,110 @@ def gmres(matvec, b, x0=None, tol=1e-12, restart=50, maxiter=200, M=None):
         x = x + V[:, :-1] @ torch.as_tensor(y, dtype=b.dtype, device=b.device)
         unit, rnorm = _safe_normalize(pre(b - matvec(x)))
     return x
+
+
+def gmres_restarted(matvec, b, rtol=1e-5, atol=0.0, restart=None,
+                    maxiter=None, psolve=None):
+    """Restarted GMRES with left preconditioning on the device of ``b``,
+    the algorithm and stop rule of ``scipy.sparse.linalg.gmres(A, b,
+    rtol=rtol, atol=atol, restart=restart, maxiter=maxiter, M=M)``: one
+    modified Gram-Schmidt pass per Arnoldi step (on the device), LAPACK
+    ``lartg`` Givens rotations on the small Hessenberg matrix (on the host),
+    the inner tolerance of scipy's gh-8400 control.  ``maxiter`` counts
+    restarts (default ``10 n``), ``restart`` the Arnoldi steps between them
+    (default 20).  Returns ``(x, info, iterations)``: ``info`` 0 when
+    ``||b - A x|| <= max(atol, rtol ||b||)``, else ``maxiter``; ``iterations``
+    the Arnoldi steps taken."""
+    psolve = (lambda v: v) if psolve is None else psolve
+    n = b.shape[0]
+    x = torch.zeros_like(b)
+    bnrm2 = float(torch.linalg.vector_norm(b))
+    atol = max(float(atol), float(rtol) * bnrm2)
+    if bnrm2 == 0:
+        return b, 0, 0
+    eps = float(torch.finfo(torch.float64).eps)
+    if maxiter is None:
+        maxiter = n * 10
+    restart = min(20 if restart is None else int(restart), n)
+    from scipy.linalg import get_lapack_funcs
+
+    lartg = get_lapack_funcs("lartg", dtype=np.complex128)
+    Mb_nrm2 = float(torch.linalg.vector_norm(psolve(b)))
+    ptol_max_factor = 1.0
+    ptol = Mb_nrm2 * min(ptol_max_factor, atol / bnrm2)
+    presid = 0.0
+    v = torch.empty((restart + 1, n), dtype=b.dtype, device=b.device)
+    h = np.zeros((restart, restart + 1), dtype=complex)
+    givens = np.zeros((restart, 2), dtype=complex)
+    inner_iter = 0
+    rnorm = np.inf
+    r = b.clone()
+    if float(torch.linalg.vector_norm(r)) < atol:
+        return x, 0, 0
+    for _ in range(int(maxiter)):
+        v[0] = psolve(r)
+        tmp = float(torch.linalg.vector_norm(v[0]))
+        v[0] *= 1 / tmp
+        S = np.zeros(restart + 1, dtype=complex)
+        S[0] = tmp
+        breakdown = False
+        for col in range(restart):
+            w = psolve(matvec(v[col]))
+            h0 = torch.linalg.vector_norm(w)
+            hk = []
+            for k in range(col + 1):  # modified Gram-Schmidt
+                t = torch.vdot(v[k], w)
+                hk.append(t)
+                w = w - t * v[k]
+            h1 = torch.linalg.vector_norm(w)
+            host = torch.stack(hk + [h0.to(b.dtype), h1.to(b.dtype)]).cpu()
+            host = host.numpy()
+            h[col, : col + 1] = host[: col + 1]
+            h0, h1 = float(host[col + 1].real), float(host[col + 2].real)
+            h[col, col + 1] = h1
+            v[col + 1] = w
+            if h1 <= eps * h0:
+                h[col, col + 1] = 0
+                breakdown = True
+            else:
+                v[col + 1] *= 1 / h1
+            for k in range(col):
+                c, s = givens[k, 0], givens[k, 1]
+                n0, n1 = h[col, [k, k + 1]]
+                h[col, [k, k + 1]] = [c * n0 + s * n1,
+                                      -s.conj() * n0 + c * n1]
+            c, s, mag = lartg(h[col, col], h[col, col + 1])
+            givens[col, :] = [c, s]
+            h[col, [col, col + 1]] = mag, 0
+            tmp = -np.conjugate(s) * S[col]
+            S[[col, col + 1]] = [c * S[col], tmp]
+            presid = np.abs(tmp)
+            inner_iter += 1
+            if presid <= ptol or breakdown:
+                break
+        if h[col, col] == 0:
+            S[col] = 0
+        y = np.zeros([col + 1], dtype=complex)
+        y[:] = S[: col + 1]
+        for k in range(col, 0, -1):
+            if y[k] != 0:
+                y[k] /= h[k, k]
+                tmp = y[k]
+                y[:k] -= tmp * h[k, :k]
+        if y[0] != 0:
+            y[0] /= h[0, 0]
+        x = x + torch.as_tensor(y, device=b.device) @ v[: col + 1]
+        r = b - matvec(x)
+        rnorm = float(torch.linalg.vector_norm(r))
+        if rnorm <= atol or breakdown:
+            break
+        if presid <= ptol:
+            ptol_max_factor = max(eps, 0.25 * ptol_max_factor)
+        else:
+            ptol_max_factor = min(1.0, 1.5 * ptol_max_factor)
+        ptol = presid * min(ptol_max_factor, atol / rnorm)
+    info = 0 if rnorm <= atol else int(maxiter)
+    return x, info, inner_iter
 
 
 def _solve_upper(A, b):

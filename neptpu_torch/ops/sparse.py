@@ -26,6 +26,8 @@ __all__ = [
     "DenseTermBank",
     "SparseTermBank",
     "make_term_bank",
+    "spmv",
+    "spmm",
 ]
 
 
@@ -64,20 +66,51 @@ class CSR:
         return out.index_put_((self.row_ids, self.indices), self.data,
                               accumulate=True)
 
+    @classmethod
+    def from_scipy(cls, A, dtype=None, device=None):
+        """A CSR matrix on ``device`` (default: the card) from a scipy
+        sparse matrix or an array (duplicates summed)."""
+        from ..config import resolve_device, to_numpy_dtype
+
+        device = resolve_device(device)
+        A = _to_scipy_csr(A)
+        A.sum_duplicates()
+        data = np.asarray(A.data)
+        if dtype is not None:
+            data = data.astype(to_numpy_dtype(dtype))
+        indptr = np.asarray(A.indptr, dtype=np.int64)
+        row_ids = np.repeat(np.arange(A.shape[0], dtype=np.int64),
+                            np.diff(indptr))
+        return cls(torch.as_tensor(data, device=device),
+                   torch.as_tensor(A.indices.astype(np.int64), device=device),
+                   torch.as_tensor(row_ids, device=device),
+                   torch.as_tensor(indptr, device=device), A.shape)
+
     def matvec(self, x):
-        dt = torch.promote_types(x.dtype, self.dtype)
-        prod = self.data.to(dt) * x.to(dt)[self.indices]
-        y = torch.zeros(self.shape[0], dtype=dt, device=x.device)
-        return y.index_add_(0, self.row_ids, prod)
+        return spmv(self, x)
 
     def matmat(self, X):
-        dt = torch.promote_types(X.dtype, self.dtype)
-        prod = self.data.to(dt)[:, None] * X.to(dt)[self.indices, :]
-        Y = torch.zeros((self.shape[0], X.shape[1]), dtype=dt, device=X.device)
-        return Y.index_add_(0, self.row_ids, prod)
+        return spmm(self, X)
 
     def __matmul__(self, x):
         return self.matvec(x) if x.ndim == 1 else self.matmat(x)
+
+
+def spmv(A: CSR, x):
+    """``y = A @ x`` by gather + segment sum (``index_add_`` over the row of
+    every stored entry)."""
+    dt = torch.promote_types(x.dtype, A.dtype)
+    prod = A.data.to(dt) * x.to(dt)[A.indices]
+    y = torch.zeros(A.shape[0], dtype=dt, device=x.device)
+    return y.index_add_(0, A.row_ids, prod)
+
+
+def spmm(A: CSR, X):
+    """``Y = A @ X`` for ``X (n, k)``, the same way as :func:`spmv`."""
+    dt = torch.promote_types(X.dtype, A.dtype)
+    prod = A.data.to(dt)[:, None] * X.to(dt)[A.indices, :]
+    Y = torch.zeros((A.shape[0], X.shape[1]), dtype=dt, device=X.device)
+    return Y.index_add_(0, A.row_ids, prod)
 
 
 class DenseTermBank:

@@ -37,10 +37,12 @@ def default_tol(dtype):
 
 def nep_device(nep):
     """The device a problem's operands live on (``None`` if it holds no
-    term bank the port knows of)."""
+    term bank or device the port knows of)."""
     bank = getattr(nep, "bank", None)
     if bank is not None:
         return torch.device(bank.device)
+    if isinstance(getattr(nep, "device", None), torch.device):
+        return nep.device  # a problem holding its own operands (WEP_FD)
     for part in ("nep1", "orgnep"):
         if hasattr(nep, part):
             return nep_device(getattr(nep, part))

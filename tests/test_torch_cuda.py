@@ -563,3 +563,64 @@ def test_rational_family_on_the_card(cuda):
         assert len(a) == len(b) > 0
         for x in a:
             assert np.min(np.abs(b - x)) <= 1e-10 * abs(x)
+
+
+@pytest.mark.cuda
+def test_native_wep_solvers_on_the_card_match_cpu(cuda):
+    """The native waveguide's three Schur-complement solvers and the SMW
+    preconditioner on the card (cuFFT, cuSOLVER LU) against the same on the
+    CPU."""
+    import neptpu_torch as nt
+    from neptpu_torch.models.gallery import waveguide as tw
+
+    spec = dict(nx=25, nz=21, benchmark_problem="TAUSCH", neptype="WEP")
+    sigma = -3 - 3.5j
+    gpu = nt.nep_gallery("waveguide", device=cuda, **spec)
+    cpu = nt.nep_gallery("waveguide", device=CPU, **spec)
+    rng = np.random.default_rng(2)
+    b = rng.standard_normal(gpu.n) + 1j * rng.standard_normal(gpu.n)
+    for kind in (":factorized", ":backslash"):
+        xg = nt.WEPLinSolverCreator(kind).create(gpu, sigma).solve(
+            torch.as_tensor(b, device=cuda))
+        xc = nt.WEPLinSolverCreator(kind).create(cpu, sigma).solve(
+            torch.as_tensor(b))
+        assert xg.device.type == "cuda"
+        assert rel_err(xg.cpu().numpy(), xc.numpy()) < 1e-12
+    pg = tw.wep_generate_preconditioner(gpu, 7, sigma)
+    pc = tw.wep_generate_preconditioner(cpu, 7, sigma)
+    v = torch.as_tensor(b[: 25 * 21])
+    assert rel_err(pg(v.to(cuda)).cpu().numpy(), pc(v).numpy()) < 1e-12
+    sg = tw.WEPGMRESLinSolver(gpu, sigma, preconditioner=pg, reltol=1e-10)
+    xg = sg.solve(torch.as_tensor(b, device=cuda))
+    r = gpu.Mlincomb(sigma, xg).cpu().numpy()
+    assert rel_err(r, b) < 1e-8 and sg.info == [0]
+
+
+@pytest.mark.cuda
+def test_complex_scans_on_the_card_match_cpu(cuda):
+    """iar_jitted and tiar_jitted on a delay problem, tiar_jitted_spmf on a
+    small gun (one f64 pair launch a step) on the card, against the CPU."""
+    import neptpu_torch as nt
+
+    for name in ("iar_jitted", "tiar_jitted"):
+        out = []
+        for dev in (cuda, CPU):
+            dep = nt.nep_gallery("dep0_tridiag", 64, device=dev)
+            out.append(getattr(nt, name)(dep, sigma=-0.3, maxit=30,
+                                         neigs=4, tol=1e-10, device=dev)[0])
+        assert len(out[0]) == len(out[1]) >= 3
+        assert np.max(np.abs(np.sort_complex(out[0])
+                             - np.sort_complex(out[1]))) < 1e-10
+    # at nx = 24 the main bank is a DIA bank (at nx = 12 a CSR one)
+    ops = small_gun_like(nx=24)
+    kw = dict(sigma=SMALL_SIGMA, gamma=SMALL_GAMMA, maxit=30, neigs=4,
+              tol=1e-8)
+    before = dia_kernel.DIA_SPMV.entry_counts["dia_lincomb_pair_f64"]
+    lg, _ = nt.tiar_jitted_spmf(_gun_from_matrices(*ops, device=cuda),
+                                device=cuda, **kw)
+    launched = (dia_kernel.DIA_SPMV.entry_counts["dia_lincomb_pair_f64"]
+                - before)
+    lc, _ = nt.tiar_jitted_spmf(_gun_from_matrices(*ops, device=CPU),
+                                device=CPU, **kw)
+    assert launched == 30 and len(lg) == len(lc) >= 4
+    assert np.max(np.abs(np.sort_complex(lg) - np.sort_complex(lc))) < 1e-9

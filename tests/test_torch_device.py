@@ -15,7 +15,7 @@ from neptpu_torch.ops.dia import DiaTermBank
 from neptpu_torch.ops.mixed import make_mixed_bank
 from neptpu_torch.ops.partitioned import (BatchedShiftSMW,
                                           build_spmf_shift_solver)
-from neptpu_torch.ops.sparse import make_term_bank
+from neptpu_torch.ops.sparse import CSR, make_term_bank
 from neptpu_torch.solvers.iar_real import dep_shift_block_lu
 from neptpu_torch.solvers.refine import newton_refine
 from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
@@ -39,6 +39,16 @@ def _calls(gun):
             "gun_like", device=d),
         "nep_gallery_waveguide": lambda d: neptpu_torch.nep_gallery(
             "waveguide", nx=5, nz=3, neptype="SPMF", device=d),
+        "nep_gallery_waveguide_native": lambda d: neptpu_torch.nep_gallery(
+            "waveguide", nx=11, nz=7, neptype="WEP", device=d),
+        "wep_fd_from_arrays": lambda d: _wep_from_parts(d),
+        "iar_jitted": lambda d: neptpu_torch.iar_jitted(
+            DEP_CPU(), sigma=-0.2, maxit=4, neigs=1, device=d),
+        "tiar_jitted": lambda d: neptpu_torch.tiar_jitted(
+            DEP_CPU(), sigma=-0.2, maxit=4, neigs=1, device=d),
+        "tiar_jitted_spmf": lambda d: neptpu_torch.tiar_jitted_spmf(
+            nep, sigma=SMALL_SIGMA, gamma=600.0, maxit=4, neigs=1, device=d),
+        "CSR.from_scipy": lambda d: CSR.from_scipy(K, device=d),
         "PEP": lambda d: neptpu_torch.PEP([K, M], device=d),
         "SPMF_NEP": lambda d: neptpu_torch.SPMF_NEP(
             [W1, W2], list(nep.get_fv())[2:], device=d),
@@ -135,9 +145,25 @@ def _calls(gun):
 GALLERY_NAMES = ["dep0", "dep0_sparse", "dep0_tridiag", "pep0", "pep0_sym",
                  "pep0_sparse", "qep_fixed_eig", "dep1", "dep_symm_double",
                  "dep_double", "dep_distributed",
-                 "nlevp_native_loaded_string"]
+                 "nlevp_native_loaded_string", "real_quadratic", "qdep0",
+                 "qdep1", "neuron0", "beam", "sine", "schrodinger_movebc",
+                 "nlevp_native_cd_player", "nlevp_native_fiber",
+                 "nlevp_native_hadeler", "nlevp_native_pdde_stability",
+                 "periodicdde", "bem_fichera", "orr_sommerfeld"]
 NEWTONS = ["newton", "augnewton", "resinv", "quasinewton", "newtonqr",
            "implicitdet"]
+
+
+def _wep_from_parts(device):
+    """A native waveguide carried over from the parts of a CPU one."""
+    from neptpu_torch.interop import wep_fd_from_arrays
+
+    w = neptpu_torch.nep_gallery("waveguide", nx=11, nz=7, neptype="WEP",
+                                 device=CPU)
+    return wep_fd_from_arrays(dict(
+        nx=w.nx, nz=w.nz, hx=w.hx, hz=w.hz, Dxx=w.Dxx.numpy(),
+        Dzz=w.Dzz.numpy(), Dz=w.Dz.numpy(), C1=w.C1, C2T=w.C2T,
+        K=w.K.numpy(), k_bar=w.k_bar, Km=1.0, Kp=2.0), device=device)
 
 
 def DEP_CPU():
@@ -176,7 +202,10 @@ ENTRY_POINTS = ["nep_gallery_gun_like", "nep_gallery_waveguide", "PEP",
                 "DeflationOps.build", "iar_chebyshev", "ilan",
                 "infbilanczos", "blocknewton", "broyden", "REP",
                 "interpolate_pep", "nleigs", "AAAeigs", "contour_beyn",
-                "contour_block_SS", "build_pencil"] + NEWTONS + [
+                "contour_block_SS", "build_pencil",
+                "nep_gallery_waveguide_native", "wep_fd_from_arrays",
+                "iar_jitted", "tiar_jitted", "tiar_jitted_spmf",
+                "CSR.from_scipy"] + NEWTONS + [
                     f"nep_gallery_{g}" for g in GALLERY_NAMES]
 
 

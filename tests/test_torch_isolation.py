@@ -87,6 +87,38 @@ for mod in (neptpu_torch, neptpu_torch.solvers, neptpu_torch.transforms,
         getattr(mod, name)
 nep = neptpu_torch.nep_gallery('waveguide', nx=5, nz=3, neptype='SPMF',
                                device='cpu')
+import neptpu_torch.solvers.iar_jit, neptpu_torch.solvers.tiar_jit
+import neptpu_torch.utils, neptpu_torch.utils.extended
+import neptpu_torch.models.gallery.bem, neptpu_torch.models.gallery.chebdiff
+import neptpu_torch.models.gallery.dtn_dimer
+import neptpu_torch.models.gallery.nlevp_bridge
+import neptpu_torch.models.gallery.lowrank_sum
+import neptpu_torch.models.gallery.periodic_dde
+wep = neptpu_torch.nep_gallery('waveguide', nx=11, nz=7, neptype='WEP',
+                               device='cpu')
+for kind in (':factorized', ':backslash', ':gmres'):
+    kw = ({'preconditioner': neptpu_torch.wep_generate_preconditioner(
+        wep, 7, -1.3 - 0.31j)} if kind == ':gmres' else {})
+    neptpu_torch.WEPLinSolverCreator(kind, **kw).create(
+        wep, -1.3 - 0.31j).solve(torch.ones(wep.n, dtype=torch.float64))
+neptpu_torch.iar(wep, sigma=-1.3 - 0.31j, maxit=5, neigs=0, device='cpu',
+                 linsolvercreator=neptpu_torch.WEPLinSolverCreator())
+neptpu_torch.iar_jitted(neptpu_torch.nep_gallery('dep0', device='cpu'),
+                        maxit=5, neigs=1, device='cpu')
+neptpu_torch.tiar_jitted(dep, sigma=-0.2, maxit=5, neigs=1, device='cpu')
+neptpu_torch.tiar_jitted_spmf(
+    _gun_from_matrices(K, M, W, W.T.tocsr(), device='cpu'), sigma=300.0 + 5j,
+    gamma=150.0, maxit=5, neigs=1, device='cpu')
+for name, args in (('real_quadratic', ()), ('qdep0', ()), ('sine', ()),
+                   ('schrodinger_movebc', (40,)), ('bem_fichera', (1,)),
+                   ('orr_sommerfeld', (8,)), ('nlevp_native_fiber', ()),
+                   ('nlevp_native_cd_player', ())):
+    neptpu_torch.nep_gallery(name, *args, device='cpu')
+neptpu_torch.nep_gallery('periodicdde', name='mathieu', N=20,
+                         device='cpu').Mder(-0.2)
+neptpu_torch.utils.newton_mp(neptpu_torch.utils.mp_from_nep(
+    neptpu_torch.nep_gallery('real_quadratic', device='cpu'), prec=64),
+    lam0=-4.0, v0=np.ones(4), tol=1e-10)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'neptpu'))
 print(','.join(bad))
@@ -111,7 +143,8 @@ def test_every_module_of_the_port_imports_alone():
                 rel = os.path.relpath(os.path.join(root, f), REPO)[:-3]
                 mods.append(rel.replace(os.sep, ".").removesuffix(
                     ".__init__"))
-    assert len(mods) >= 48 and "neptpu_torch.transforms.shift_scale" in mods
+    assert len(mods) >= 62 and "neptpu_torch.transforms.shift_scale" in mods
+    assert "neptpu_torch.models.gallery.periodic_dde" in mods
     probe = ("import importlib, sys\n"
              f"for m in {mods!r}:\n    importlib.import_module(m)\n"
              "print(','.join(sorted(m for m in sys.modules if "
@@ -134,3 +167,52 @@ def test_sources_never_import_jax_or_neptpu():
                 if words[:1] in (["import"], ["from"]) and len(words) > 1:
                     top = words[1].split(".")[0].rstrip(",")
                     assert top not in ("jax", "jaxlib", "neptpu"), (path, line)
+
+
+# what of the JAX package has no counterpart in the port: the one module
+# slice still to come (the sharded layer: ``parallel/*`` beyond the SPIKE
+# helpers and the sharded IAR), the TPU kernel that the port's hand-written
+# CUDA kernel replaces, and the ctypes loader of the JAX package's native
+# helper library
+A18_MODULES = {"parallel/halo.py", "parallel/mesh.py",
+               "parallel/mixed_sharded.py", "parallel/quadrature.py",
+               "parallel/spmv.py", "solvers/iar_sharded.py"}
+REPLACED_MODULES = {"ops/pallas_spmv.py", "native/__init__.py"}
+# top-level names of the JAX package that only the sharded slice brings
+A18_NAMES = set()
+
+
+def _py_files(root):
+    out = set()
+    for base, _, names in os.walk(root):
+        for f in names:
+            if f.endswith(".py"):
+                out.add(os.path.relpath(os.path.join(base, f), root).replace(
+                    os.sep, "/"))
+    return out
+
+
+def test_only_the_sharded_slice_is_missing():
+    """Every module and every top-level name of the JAX package has its
+    counterpart in the port, except the sharded slice's (and the TPU kernel
+    and native loader that the port replaces); the gallery registries hold
+    the same keys."""
+    jax_files = _py_files(os.path.join(REPO, "neptpu"))
+    port_files = _py_files(os.path.join(REPO, "neptpu_torch"))
+    assert jax_files - port_files == A18_MODULES | REPLACED_MODULES
+    probe = (
+        "import jax; jax.config.update('jax_platforms', 'cpu')\n"
+        "import neptpu, neptpu_torch\n"
+        "a = {n for n in dir(neptpu) if not n.startswith('_')}\n"
+        "b = {n for n in dir(neptpu_torch) if not n.startswith('_')}\n"
+        "print(sorted(a - b))\n"
+        "from neptpu.models.gallery import GALLERY as G1\n"
+        "from neptpu_torch.models.gallery import GALLERY as G2\n"
+        "print(sorted(set(G1) ^ set(G2)), len(G2))\n")
+    out = subprocess.run([sys.executable, "-c", probe], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "JAX_PLATFORMS": "cpu"})
+    assert out.returncode == 0, out.stderr
+    missing, gallery = out.stdout.strip().splitlines()[-2:]
+    assert missing == str(sorted(A18_NAMES))
+    assert gallery == "[] 30"

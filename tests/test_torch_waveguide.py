@@ -137,9 +137,10 @@ def test_mixed_bank_split_apply_matches_jax(weps):
 
 
 def test_native_format_waits_and_bad_arguments_raise():
-    with pytest.raises(NotImplementedError, match="A.15"):
-        neptpu_torch.nep_gallery("waveguide", nx=11, nz=9, neptype="WEP",
-                                 device=CPU)
+    # the native format is ported: neptype="WEP" builds a WEP_FD
+    nep = neptpu_torch.nep_gallery("waveguide", nx=11, nz=9, neptype="WEP",
+                                   device=CPU)
+    assert isinstance(nep, neptpu_torch.WEP_FD) and nep.n == 11 * 9 + 18
     with pytest.raises(ValueError, match="odd"):
         neptpu_torch.nep_gallery("waveguide", nx=11, nz=8, neptype="SPMF",
                                  device=CPU)
