@@ -120,7 +120,23 @@ Phases, a few informative lines each (any failure exits non-zero):
    registry identity Mlincomb = Mder v, and the pinned oracles
    (``real_quadratic``, ``orr_sommerfeld``, the mathieu ``periodicdde``,
    ``bem_fichera``, fiber, cd_player, hadeler, pdde_stability, beam);
-   within 60 s.
+   within 60 s;
+9. sharded: the sharded layer (``torch.distributed``, SPMD).  (a) One rank
+   over NCCL in this process: ``iar_real_sharded`` on the float64 delay
+   problem (n = 1e4, maxit 60; >= 10 pairs at backward error <= 1e-10
+   within rel 1e-9 of float64 ``iar_real``), ``iar_real_spmf_sharded`` on
+   gun_like (the 4 converged pairs nearest sigma within rel 1e-9 of the
+   serial float64 scan; >= 10 distinct pairs on the pinned oracle, the
+   others on the serial scan's) and on wep (3 pairs within 1e-10 of the
+   serial scan, residual < 1e-8), ``contour_beyn(mesh=...)`` on
+   [rational]'s ellipse (rel 1e-8 of the serial run).  (b) Four ranks on
+   the one card (spawned processes, gloo with every collective staged
+   through the host, compute on the card): the three scans with the same
+   gates and ``sharded_dia_lincomb`` on the SpMV headline bank against the
+   single-card apply (rel 1e-6).  Each scan launches one float64 B1 pair a
+   step on each rank's window and nothing else; the windows are the shapes
+   the kernel checks ran at; within 180 s.  One card gives correctness,
+   not scaling.
 
 With ``--profile``, one shift's factorization and scan of gun_like and of wep
 run once more under ``torch.profiler`` (device busy share, time by kernel),
@@ -540,6 +556,15 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
         ("wep f64", torch.float64, wm[1], wm[2], wm[0], 1e-12, True),
     ] + [(f"{key} f64", bank.data.to(torch.float64), bank.offsets, None,
           None, 1e-12, True) for key, bank in (extra or {}).items()]
+    # [sharded]: each rank's window of the bank (its block zero-padded by
+    # the two halos), at one rank and at four; the scans' float64 pair and
+    # the SpMV headline's float32 single apply
+    shapes += [(window_row(key, ranks), torch.float32 if key == "headline"
+                else torch.float64, offs, n_ext, m,
+                1e-5 if key == "headline" else 1e-12, key != "headline")
+               for (key, ranks), (m, offs, n_ext)
+               in sharded_windows(gun_bank).items()
+               if (key, ranks) in SHARDED["runs"]]
     # the launch floor: an empty kernel through the same ctypes route, as
     # the host launches it and under graph replay
     floor_ms = _median_ms(torch, lambda: dia_kernel.empty_launch(DEVICE))
@@ -790,7 +815,8 @@ def phase_spmv_path(torch, dia_kernel):
     check(entry["dia_lincomb_bf16"] == 2 * (ncalls + 1)
           and entry["dia_lincomb_pair_bf16"] == 1,
           f"bf16 headline applies launched {entry}")
-    return {"counts": dict(dia_kernel.DIA_SPMV.counts), "entry": entry}
+    return {"counts": dict(dia_kernel.DIA_SPMV.counts), "entry": entry,
+            "y": y.cpu().numpy()}
 
 
 def run_time_to_tol(torch, dia_kernel, key, make_nep, sigma, gamma=1.0,
@@ -1686,7 +1712,9 @@ def phase_rational(torch, dia_kernel, gun, cfg=RATIONAL):
         return (d.real / radius[0]) ** 2 + (d.imag / radius[1]) ** 2 <= 1
 
     pinned_ell = GUN_LIKE_PINNED[in_ellipse(GUN_LIKE_PINNED)]
-    in_disk = 128.7  # every eigenvalue this close to SIGMA is pinned
+    # the pinned values lie this close to SIGMA (the oracle misses two
+    # eigenvalues inside it, ROADMAP C11; none in the box or the ellipse)
+    in_disk = 128.7
     Xi = GUN_SIGMA2**2 - np.logspace(-8, 8, 10000)
     Z = _box_samples(box)
     print(f"[rational] gun_like n={nep.n} complex128: box {box}, "
@@ -1817,6 +1845,8 @@ def phase_rational(torch, dia_kernel, gun, cfg=RATIONAL):
                       f"rational {name}: {contour.BATCHED_LU} stacked LUs "
                       f"(expected {-(-N // chunk)} chunks of {N} nodes)")
             out[name] = launched
+            if name == "contour_beyn":
+                beyn = lams
     finally:
         contour.batched_lu_factor = plain_factor
     t_phase = time.perf_counter() - t_phase
@@ -1824,7 +1854,7 @@ def phase_rational(torch, dia_kernel, gun, cfg=RATIONAL):
           flush=True)
     check(t_phase <= cfg["budget"],
           f"rational took {t_phase:.1f} s (> {cfg['budget']:g} s)")
-    return out
+    return out, beyn
 
 
 def phase_refine_chip(torch, gun):
@@ -2469,6 +2499,380 @@ def phase_gallery(torch, dia_kernel):
     return out
 
 
+# [sharded]: the sharded layer (torch.distributed, SPMD).  (a) one rank over
+# NCCL in this process at full size; (b) four ranks on the one card, spawned
+# processes over gloo with the collectives staged through the host (NCCL
+# refuses two ranks on one GPU), all compute on the card.  One H100 gives
+# correctness, not scaling.
+SHARDED = dict(world=4, maxit=60, wep=dict(sigma=-3 - 3.5j, maxit=36,
+                                           neigs=3, tol=1e-8),
+               need=10, budget=180.0,
+               # (problem, ranks) run: (a) one rank, (b) four on the card
+               runs=(("dep", 1), ("gun_like", 1), ("wep", 1), ("dep", 4),
+                     ("gun_like", 4), ("wep", 4), ("headline", 4)))
+
+
+def window_row(key, ranks):
+    """The kernel-check row of a [sharded] window."""
+    return (f"{key} window{ranks} "
+            f"{'f32' if key == 'headline' else 'f64'}")
+
+
+def sharded_windows(gun_bank):
+    """The windows ``(m, ndiag, blk + halo_lo + halo_hi)`` kernel B1 is
+    launched on in [sharded], by key and rank count: each rank's block of
+    the bank zero-padded by its two halos."""
+    shapes = {"dep": dep_bank_shape(DEP["nside"]),
+              "gun_like": (gun_bank.nterms, gun_bank.offsets, gun_bank.n),
+              "wep": wep_bank_shape(WEP)}
+    w = int(round(np.sqrt(HEADLINE_N)))
+    shapes["headline"] = (HEADLINE_M, (-w - 1, -w, -w + 1, -1, 0, 1, w - 1,
+                                       w, w + 1), HEADLINE_N)
+    out = {}
+    for key, (m, offs, n) in shapes.items():
+        for ranks in (1, SHARDED["world"]):
+            halo = max(offs) - min(offs)
+            out[key, ranks] = (m, offs, -(-n // ranks) + halo)
+    return out
+
+
+def _sharded_problems(keys):
+    """The full-size problems of [sharded], built on the card."""
+    from neptpu_torch import nep_gallery
+
+    make = {"dep": lambda: nep_gallery("dep_symm_double", DEP["nside"],
+                                       device=DEVICE),
+            "gun_like": lambda: nep_gallery("gun_like", device=DEVICE),
+            "wep": lambda: wep_nep(WEP)}
+    return {k: make[k]() for k in keys}
+
+
+def _sharded_scans(torch, dia_kernel, mesh, neps, keys):
+    """The sharded scans of ``keys`` on ``mesh`` (every rank calls this
+    alike): per run the eigenvalues, Ritz vectors, info, launches by entry
+    point (counts set to 0 just before), peak device memory and wall."""
+    from neptpu_torch.parallel.mixed_sharded import iar_real_spmf_sharded
+    from neptpu_torch.solvers.iar_sharded import iar_real_sharded
+
+    m = SHARDED["maxit"]
+    runs = {
+        "dep": lambda: iar_real_sharded(
+            neps["dep"], mesh, sigma=DEP["sigma"], maxit=m, neigs=m,
+            tol=np.inf, dtype=torch.float64, return_info=True),
+        "gun_like": lambda: iar_real_spmf_sharded(
+            neps["gun_like"], mesh, sigma=SIGMA, gamma=GAMMA, maxit=m,
+            neigs=m, tol=np.inf, dtype=torch.float64, return_info=True),
+        "wep": lambda: iar_real_spmf_sharded(
+            neps["wep"], mesh, dtype=torch.float64, return_info=True,
+            **SHARDED["wep"])}
+    out = {}
+    for key in keys:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dia_kernel.DIA_SPMV.reset_counts()
+        t0 = time.perf_counter()
+        lams, Q, info = runs[key]()
+        torch.cuda.synchronize()
+        out[key] = {"lams": np.asarray(lams), "Q": Q, "info": info,
+                    "entry": dict(dia_kernel.DIA_SPMV.entry_counts),
+                    "peak": torch.cuda.max_memory_allocated(),
+                    "wall": time.perf_counter() - t0}
+    return out
+
+
+def _headline_sharded(torch, dia_kernel, mesh):
+    """``sharded_dia_lincomb`` on the SpMV headline bank (the bank and the
+    term-major operand of ``phase_spmv_path``, from the same seed), the
+    result gathered; launches counted from 0 around the apply."""
+    import scipy.sparse as sp
+
+    from neptpu_torch.ops.dia import DiaTermBank
+    from neptpu_torch.parallel import (ShardedDiaBank, shard_vector,
+                                       sharded_dia_lincomb, unshard_vector)
+
+    rng = np.random.default_rng(0)
+    n, w = HEADLINE_N, int(round(np.sqrt(HEADLINE_N)))
+    offs = (-w - 1, -w, -w + 1, -1, 0, 1, w - 1, w, w + 1)
+    mats = [sp.diags([rng.standard_normal(n - abs(o)).astype(np.float32)
+                      for o in offs], offs, shape=(n, n), format="csr")
+            for _ in range(HEADLINE_M)]
+    WT = rng.standard_normal((HEADLINE_M, n)).astype(np.float32)
+    bank = DiaTermBank.from_matrices(mats, dtype=np.float32, device=DEVICE)
+    sb = ShardedDiaBank(bank, mesh.size("rows")).device_put(mesh)
+    W_d = shard_vector(WT.T, mesh, sb.blk)
+    del bank
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dia_kernel.DIA_SPMV.reset_counts()
+    t0 = time.perf_counter()
+    y_d = sharded_dia_lincomb(sb, W_d, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    entry = dict(dia_kernel.DIA_SPMV.entry_counts)
+    return {"y": unshard_vector(y_d, n, mesh).cpu().numpy(), "entry": entry,
+            "wall": wall, "peak": torch.cuda.max_memory_allocated(),
+            "info": {"window": tuple(sb.window.data.shape)}}
+
+
+def _sharded_rank(rank, world, init_file, out_dir, keys):
+    """One rank of [sharded] (b): gloo over the host, compute on the card."""
+    import pickle
+
+    import torch
+    import torch.distributed as dist
+
+    from neptpu_torch.ops import dia_kernel
+    from neptpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_mesh(device=DEVICE, backend="gloo")
+        neps = _sharded_problems(keys)
+        out = _sharded_scans(torch, dia_kernel, mesh, neps, keys)
+        out["headline"] = _headline_sharded(torch, dia_kernel, mesh)
+        out["mesh"] = repr(mesh)
+        if rank:  # every rank's eigenvalues, rank 0's vectors
+            for key in keys:
+                out[key]["Q"] = None
+            out["headline"]["y"] = None
+        with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
+            pickle.dump(out, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_sharded(torch, dia_kernel, dep_nep, pairs64, beyn_serial,
+                  headline_y, gun_bank):
+    """[sharded]: the sharded layer through its entry points.
+
+    (a) ONE rank over NCCL (a world of one on an in-memory store) in this
+    process: ``iar_real_sharded`` on the float64 delay problem at [dep]'s
+    settings (maxit 60), ``iar_real_spmf_sharded`` on gun_like at
+    (SIGMA, GAMMA) and on wep (JARLEBRING 109 x 105) at sigma = -3 - 3.5i
+    (maxit 36, 3 pairs), and ``contour_beyn(mesh=...)`` on [rational]'s
+    ellipse.  At one rank SPIKE is the dense LU of the whole interleaved
+    system (3.2-4.3 GB).  Gates: delay problem >= 10 pairs at backward error
+    <= 1e-10 within rel 1e-9 of float64 ``iar_real``'s; gun_like the 4
+    converged pairs (backward <= 1e-9) nearest sigma within rel 1e-9 of the
+    serial float64 ``iar_real_spmf(scaled=True)`` pairs, its distinct pairs
+    <= 1e-9 each within rel 1e-9 of the pinned oracle or of the serial
+    scan's (the oracle misses two eigenvalues in its disk), >= 10 on the
+    oracle; wep >= 3 converged, each within 1e-10 of a serial pair, residual
+    < 1e-8; Beyn the 6 pinned values in the ellipse within rel 1e-8 of the
+    serial run.
+
+    (b) FOUR ranks on the one card (spawned processes, ``backend="gloo"``
+    with ``device="cuda"``: every collective copies its tensor to the host
+    and back, compute stays on the card): the three scans of (a) with the
+    same gates and ``sharded_dia_lincomb`` on the SpMV headline bank
+    against the single-card apply (rel 1e-6).
+
+    Every sharded scan launches one float64 B1 pair kernel per step on each
+    rank's window and no single kernel.  Within SHARDED["budget"] seconds.
+    Returns the launches by path."""
+    import tempfile
+
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    from neptpu_torch import (StandardSPMFErrmeasure, compute_resnorm,
+                              contour_beyn, iar_real_spmf)
+    from neptpu_torch.parallel import make_mesh
+    from neptpu_torch.solvers.spmf_real import collect_spmf_terms
+
+    t_phase = time.perf_counter()
+    world, need, maxit = SHARDED["world"], SHARDED["need"], SHARDED["maxit"]
+    windows = sharded_windows(gun_bank)
+    paths = {}
+    neps = _sharded_problems(("gun_like", "wep"))
+    neps["dep"] = dep_nep
+    dep_bw = dep_backward(dep_nep)[0]
+    gun_bw = backward_errmeasure(*collect_spmf_terms(neps["gun_like"]))
+    l64 = np.asarray(pairs64[0])[pairs64[2] <= 1e-10]
+
+    # the serial float64 references the gates need beyond [dep-protocol]'s
+    t0 = time.perf_counter()
+    ls, Qs = iar_real_spmf(neps["gun_like"], sigma=SIGMA, gamma=GAMMA,
+                           maxit=maxit, neigs=maxit, tol=np.inf,
+                           dtype=torch.float64, scaled=True, device=DEVICE)
+    es = np.array([gun_bw(complex(x), Qs[:, i]) for i, x in enumerate(ls)])
+    gun_serial = np.asarray(ls)[es <= 1e-9]
+    wep_serial, _ = iar_real_spmf(neps["wep"], dtype=torch.float64,
+                                  scaled=True, device=DEVICE,
+                                  **SHARDED["wep"])
+    wep_serial = np.asarray(wep_serial)
+    print(f"[sharded] serial float64 references in "
+          f"{time.perf_counter() - t0:.3f} s: gun_like iar_real_spmf "
+          f"(scaled) {len(gun_serial)} pairs at backward <= 1e-9, wep "
+          f"{len(wep_serial)} pairs; delay problem {len(l64)} float64 "
+          "iar_real pairs at backward <= 1e-10 (from [dep-protocol])",
+          flush=True)
+
+    def report(tag, key, run, ranks):
+        info = run["info"]
+        launched = {k: v for k, v in run["entry"].items() if v}
+        steps = info.get("steps", maxit)
+        print(f"[sharded] {tag} {key}: window (m, ndiag, n_ext) "
+              f"{info['window']} SPIKE block {info.get('spike_block')}"
+              f" reduced {info.get('reduced')} t_factorize "
+              f"{info.get('t_factorize', 0.0):.3f} s t_scan "
+              f"{info.get('t_scan', 0.0):.3f} s wall {run['wall']:.3f} s "
+              f"launches {launched} peak_device_mem "
+              f"{run['peak'] / 2**20:.1f} MiB", flush=True)
+        m, offs, n_ext = windows[key, ranks]
+        check(info["window"] == (m, len(offs), n_ext),
+              f"sharded {tag} {key}: window {info['window']}, the kernel "
+              f"checks ran at {(m, len(offs), n_ext)}")
+        if key == "headline":
+            check(run["entry"]["dia_lincomb_f32"] == 1
+                  and sum(run["entry"].values()) == 1,
+                  f"sharded {tag} headline: launches {launched}")
+        else:
+            check(run["entry"]["dia_lincomb_pair_f64"] == steps
+                  and sum(run["entry"].values()) == steps,
+                  f"sharded {tag} {key}: {steps} steps launched {launched} "
+                  "(need one float64 pair launch a step and nothing else)")
+
+    def gate_dep(tag, run):
+        lams, Q = run["lams"], run["Q"]
+        errs = np.array([dep_bw(complex(x), Q[:, i])
+                         for i, x in enumerate(lams)])
+        good = lams[errs <= 1e-10]
+        gaps = np.array([_conj_gap(x, l64) for x in good])
+        matched = int(np.sum(gaps <= 1e-9))
+        print(f"[sharded] {tag} dep: {len(good)} of {len(lams)} Ritz pairs "
+              f"at backward error <= 1e-10, {matched} of them within rel "
+              f"1e-9 of float64 iar_real's (need {need}; rel gaps "
+              f"{np.array2string(np.sort(gaps), precision=2)})", flush=True)
+        check(matched >= need, f"sharded {tag} dep: {matched} pairs at "
+                               "backward error <= 1e-10 matched to rel 1e-9")
+
+    def gate_gun(tag, run):
+        lams, Q = run["lams"], run["Q"]
+        errs = np.array([gun_bw(complex(x), Q[:, i])
+                         for i, x in enumerate(lams)])
+        conv = lams[errs <= 1e-9]
+        near = conv[np.argsort(np.abs(conv - SIGMA))][:4]
+        gaps = np.array([_conj_gap(x, gun_serial) for x in near])
+        found = lams[distinct_below_tol(lams, errs, 1e-9)]
+        pin = np.array([np.min(np.abs(GUN_LIKE_PINNED - x)) / abs(x)
+                        for x in found])
+        other = np.array([_conj_gap(x, gun_serial) for x in found])
+        print(f"[sharded] {tag} gun_like: {len(conv)} Ritz pairs at backward "
+              f"error <= 1e-9, the 4 nearest sigma "
+              f"{np.array2string(near, precision=10)} within rel "
+              f"{max(gaps, default=np.nan):.3e} of the serial scan's (gate "
+              f"1e-9); {len(found)} distinct, {int(np.sum(pin <= 1e-9))} on "
+              f"the pinned oracle (rel 1e-9, need {need}), the others "
+              f"{np.array2string(found[pin > 1e-9], precision=10)} within "
+              f"rel {max(other[pin > 1e-9], default=0.0):.3e} of the serial "
+              "scan's (gate 1e-9)", flush=True)
+        check(len(near) == 4 and max(gaps) <= 1e-9
+              and np.sum(pin <= 1e-9) >= need
+              and all((pin <= 1e-9) | (other <= 1e-9)),
+              f"sharded {tag} gun_like: near {near} gaps {gaps}, pinned "
+              f"gaps {pin}, gaps to the serial scan {other}")
+
+    def gate_wep(tag, run):
+        lams = run["lams"]
+        res = [float(compute_resnorm(neps["wep"], complex(x), torch.as_tensor(
+            run["Q"][:, i], device=DEVICE))) for i, x in enumerate(lams)]
+        gaps = [float(np.min(np.abs(wep_serial - x))) for x in lams]
+        print(f"[sharded] {tag} wep: nconv {run['info']['nconv']}, "
+              f"eigenvalues {np.array2string(lams, precision=10)}, max |gap| "
+              f"to the serial scan {max(gaps, default=np.nan):.3e} (gate "
+              f"1e-10), max residual {max(res, default=np.nan):.3e} (gate "
+              "1e-8)", flush=True)
+        check(run["info"]["nconv"] >= 3 and len(lams) == 3
+              and max(gaps) < 1e-10 and max(res) < 1e-8,
+              f"sharded {tag} wep: {lams}, gaps {gaps}, res {res}")
+
+    gates = {"dep": gate_dep, "gun_like": gate_gun, "wep": gate_wep}
+
+    # ---- (a) one rank, NCCL, in this process -----------------------------
+    check(not dist.is_initialized(), "a process group already exists")
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(device=DEVICE)
+        print(f"[sharded] (a) {mesh}: backend {mesh.backend}, world size "
+              f"{dist.get_world_size()}", flush=True)
+        check(mesh.backend == "nccl" and not mesh.host_staged,
+              f"(a) runs over {mesh}")
+        runs = _sharded_scans(torch, dia_kernel, mesh, neps,
+                              [k for k, r in SHARDED["runs"] if r == 1])
+        for key, run in runs.items():
+            report("(a) 1 rank", key, run, 1)
+            paths[f"sharded {key} r1"] = run["entry"]
+            gates[key]("(a) 1 rank", run)
+        del runs
+        # node-sharded quadrature on [rational]'s ellipse
+        cfg = RATIONAL
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        lb, _ = contour_beyn(neps["gun_like"], sigma=cfg["center"],
+                             radius=cfg["radius"], N=cfg["N"], neigs=6, k=8,
+                             errmeasure=StandardSPMFErrmeasure,
+                             chunk=cfg["chunk"], mesh=mesh)
+        torch.cuda.synchronize()
+        lb = np.asarray(lb)
+        gaps = [float(np.min(np.abs(beyn_serial - x)) / abs(x)) for x in lb]
+        print(f"[sharded] (a) 1 rank contour_beyn(mesh=) N={cfg['N']}: "
+              f"{len(lb)} eigenvalues in {time.perf_counter() - t0:.3f} s, "
+              f"max rel gap to the serial contour_beyn "
+              f"{max(gaps, default=np.nan):.3e} (gate 1e-8), peak_device_mem "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        check(len(lb) == len(beyn_serial) == 6 and max(gaps) <= 1e-8,
+              f"sharded (a) contour_beyn: {lb} against {beyn_serial}")
+    finally:
+        dist.destroy_process_group()
+
+    # ---- (b) four ranks on the one card: gloo, host-staged ---------------
+    keys = tuple(k for k, r in SHARDED["runs"]
+                 if r == world and k != "headline")
+    torch.cuda.empty_cache()  # this process's cached blocks, for the ranks
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(_sharded_rank, args=(world, os.path.join(tmp, "rdv"), tmp,
+                                      keys), nprocs=world, join=True)
+        import pickle
+
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as fh:
+                ranks.append(pickle.load(fh))
+    t_b = time.perf_counter() - t0
+    print(f"[sharded] (b) {ranks[0]['mesh']}: backend gloo, world size "
+          f"{world}, every collective staged through the host, compute on "
+          f"the card; spawn to join {t_b:.3f} s", flush=True)
+    tag = f"(b) {world} ranks"
+    for key in keys + ("headline",):
+        for r, out in enumerate(ranks):
+            report(f"{tag} rank {r}", key, out[key], world)
+            if key != "headline":
+                check(np.array_equal(out[key]["lams"], ranks[0][key]["lams"]),
+                      f"sharded {tag} {key}: rank {r}'s eigenvalues differ")
+        paths[f"sharded {key} r{world}"] = {
+            k: sum(out[key]["entry"][k] for out in ranks)
+            for k in ranks[0][key]["entry"]}
+    for key in keys:
+        gates[key](tag, ranks[0][key])
+    y = ranks[0]["headline"]["y"]
+    rel = float(np.abs(y - headline_y).max() / np.abs(headline_y).max())
+    print(f"[sharded] {tag} headline sharded_dia_lincomb n={HEADLINE_N}: max "
+          f"rel err vs the single-card B1 apply {rel:.3e} (gate 1e-6)",
+          flush=True)
+    check(rel <= 1e-6, f"sharded headline apply off by {rel:.3e}")
+    t_phase = time.perf_counter() - t_phase
+    print(f"[sharded] phase {t_phase:.3f} s (budget {SHARDED['budget']:g} s)",
+          flush=True)
+    check(t_phase <= SHARDED["budget"],
+          f"sharded took {t_phase:.1f} s (> {SHARDED['budget']:g} s)")
+    return paths
+
+
 def main():
     import argparse
 
@@ -2513,7 +2917,8 @@ def main():
 
     # launches by C entry point on each main path (counts set to 0 just
     # before a path is driven and read just after)
-    paths = {"spmv": phase_spmv_path(torch, dia_kernel)["entry"]}
+    spmv = phase_spmv_path(torch, dia_kernel)
+    paths = {"spmv": spmv["entry"]}
     gun = run_time_to_tol(
         torch, dia_kernel, "gun_like",
         lambda: nep_gallery("gun_like", device=DEVICE), SIGMA, gamma=GAMMA,
@@ -2564,7 +2969,8 @@ def main():
     dep_nep = dep["nep0"]  # the float64 delay problem, for [complex-scan]
     del dep
     # the rational-Krylov, AAA and contour family on gun_like
-    for name, launched in phase_rational(torch, dia_kernel, gun).items():
+    rational, beyn = phase_rational(torch, dia_kernel, gun)
+    for name, launched in rational.items():
         paths[f"rational {name}"] = {
             k: launched.get(k, 0) for k in dia_kernel.DIA_SPMV.entry_counts}
     phase_refine_chip(torch, gun)
@@ -2576,6 +2982,9 @@ def main():
         paths[f"complex-scan {key}"] = launched
     for key, launched in phase_gallery(torch, dia_kernel).items():
         paths[f"gallery {key}"] = launched
+    # the sharded layer: one rank over NCCL, four ranks on the card
+    paths.update(phase_sharded(torch, dia_kernel, dep_nep, pairs64, beyn,
+                               spmv["y"], gun_bank))
     if args.profile:
         phase_profile(torch, args.profile, "gun_like",
                       lambda: nep_gallery("gun_like", device=DEVICE), SIGMA,
@@ -2638,6 +3047,13 @@ def main():
         gal = [row for row in gal if sum(launches(row[2], row[3]).values())]
         check(len(gal) > 0, f"the {key} bank was launched on no path")
         table += gal
+    # [sharded]: B1 on each rank's window, at one rank and at four
+    for key, ranks in SHARDED["runs"]:
+        single = key == "headline"
+        entry = "dia_lincomb_f32" if single else "dia_lincomb_pair_f64"
+        table.append((f"{entry}@{key}_window{ranks}",
+                      window_row(key, ranks) + ("" if single else " pair"),
+                      [entry], (f"sharded {key} r{ranks}",)))
     kernels = []
     for name, key, entries, on in table:
         row, by_path = rows[key], launches(entries, on)

@@ -36,6 +36,7 @@ __all__ = [
     "csr_to_strips",
     "rot_i",
     "complex_lowrank_to_half",
+    "complex_lowrank_to_interleaved",
     "interleave_pair",
     "deinterleave_pair",
     "PartitionedBandedSolver",
@@ -107,6 +108,28 @@ def complex_lowrank_to_half(Lc, Uc):
     Uh[1::2] = -Uc.imag
     return Lh, Uh
 
+
+
+def complex_lowrank_to_interleaved(Lc, Uc):
+    """Complex rank-R factors (n, R) x2 with A = Lc Uc^T -> real factors
+    (2n, 2R) x2 in the row-interleaved encoding: ``Ltil Util^T`` equals
+    ``P [[Re A, -Im A], [Im A, Re A]] P^T`` (P the interleaving permutation).
+    The full form of :func:`complex_lowrank_to_half`'s halves, which the
+    sharded SMW solve takes (host numpy)."""
+    Lc = np.asarray(Lc)
+    Uc = np.asarray(Uc)
+    n, R = Lc.shape
+    Ltil = np.zeros((2 * n, 2 * R), dtype=Lc.real.dtype)
+    Util = np.zeros((2 * n, 2 * R), dtype=Uc.real.dtype)
+    Ltil[0::2, :R] = Lc.real
+    Ltil[0::2, R:] = -Lc.imag
+    Ltil[1::2, :R] = Lc.imag
+    Ltil[1::2, R:] = Lc.real
+    Util[0::2, :R] = Uc.real
+    Util[0::2, R:] = Uc.imag
+    Util[1::2, :R] = -Uc.imag
+    Util[1::2, R:] = Uc.real
+    return Ltil, Util
 
 def _block_index_lists(offsets, blk, b):
     """Host index lists of the diagonal block D, the coupling to the next

@@ -1,0 +1,224 @@
+"""Process meshes and the collectives of the sharded layer.
+
+The framework's two parallel axes (as in the JAX package):
+
+* ``rows``  — row-partitioned operands and vectors (the halo-exchange DIA
+  bank, SPIKE, the row-sharded CSR bank; Gram reductions psum over it);
+* ``nodes`` — quadrature-node batching (independent shifted solves; one
+  psum of the small moments).
+
+The JAX package is one controller over a device mesh: a ``shard_map`` body
+sees its block and calls ``jax.lax.{ppermute, all_gather, psum,
+axis_index}``.  The port is SPMD over ``torch.distributed``: one process per
+rank, every rank calls the same function with the same host inputs and holds
+only its own block.  The collectives the JAX bodies write inline are the
+methods of :class:`Mesh` (``rank``/``size`` for ``axis_index`` and
+``mesh.shape[axis]``, ``psum``, ``all_gather``, ``neighbour_exchange`` for
+the two chain ``ppermute``\\ s), over the process groups of a
+``torch.distributed`` ``DeviceMesh`` with dims ``("rows", "nodes")``.
+
+Backends are explicit: NCCL goes with a CUDA device and gloo with the CPU.
+NCCL refuses two ranks on one GPU and gloo moves CUDA tensors only in
+``broadcast``/``all_reduce``, so several ranks on ONE card is the caller's
+choice of ``backend="gloo"`` with ``device="cuda"``: there every collective
+copies its CUDA tensor to the host, runs on the host and copies the result
+back (``Mesh.host_staged``), while all compute stays on the card.  Nothing
+here picks gloo or the CPU on its own.
+
+Not carried over from ``neptpu/parallel/mesh.py``: ``P`` and
+``NamedSharding`` (``mesh.py:20``), re-exports of ``jax.sharding`` that
+place a global array on a device mesh - an SPMD rank holds its block and
+there is nothing to place; and the virtual-device mesh of the JAX tests
+(``tests/conftest.py``), whose counterpart is a world of processes.
+"""
+from __future__ import annotations
+
+import os
+
+import torch
+import torch.distributed as dist
+
+from ..config import resolve_device
+
+__all__ = ["make_mesh", "initialize_distributed", "Mesh", "default_backend"]
+
+AXES = ("rows", "nodes")
+
+
+def default_backend(device):
+    """The backend that goes with ``device``: NCCL for CUDA, gloo for the
+    CPU."""
+    return "nccl" if torch.device(device).type == "cuda" else "gloo"
+
+
+def _local_rank():
+    return int(os.environ.get("LOCAL_RANK", 0))
+
+
+def initialize_distributed(backend=None, device=None, init_method=None,
+                           world_size=None, rank=None):
+    """Initialize the default ``torch.distributed`` process group.
+
+    With no arguments, reads the torchrun variables (``MASTER_ADDR``,
+    ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; ``LOCAL_RANK`` picks the CUDA
+    device of an NCCL rank).  Safe to call more than once (True once a group
+    exists, whoever made it), and a no-op returning False in a single
+    process with no cluster configured.  ``backend`` defaults to the one
+    that goes with ``device`` (the card unless ``device="cpu"``)."""
+    if dist.is_initialized():
+        return True
+    env = os.environ
+    if world_size is None and env.get("WORLD_SIZE"):
+        world_size = int(env["WORLD_SIZE"])
+    if rank is None and env.get("RANK"):
+        rank = int(env["RANK"])
+    if init_method is None:
+        if not (env.get("MASTER_ADDR") and env.get("MASTER_PORT")):
+            return False  # no cluster configured: nothing to do
+        init_method = "env://"
+    if world_size is None or rank is None:
+        raise ValueError("a distributed run needs its world size and rank "
+                         "(WORLD_SIZE and RANK, or the arguments)")
+    device = resolve_device(device)
+    backend = backend or default_backend(device)
+    if backend == "nccl":
+        torch.cuda.set_device(_local_rank())
+    dist.init_process_group(backend, init_method=init_method,
+                            world_size=world_size, rank=rank)
+    return True
+
+
+class Mesh:
+    """A ``(rows, nodes)`` mesh of ranks with the collectives of the sharded
+    layer.  ``device`` is where this rank computes; ``backend`` the process
+    groups' backend; ``host_staged`` is True for gloo over CUDA tensors."""
+
+    def __init__(self, device_mesh, device, backend):
+        self.device_mesh = device_mesh
+        self.device = torch.device(device)
+        self.backend = backend
+        self.host_staged = backend == "gloo" and self.device.type == "cuda"
+        self.shape = {a: device_mesh.size(i) for i, a in enumerate(AXES)}
+        self._groups = {a: device_mesh.get_group(a) for a in AXES}
+
+    def __repr__(self):
+        return (f"Mesh(rows={self.shape['rows']}, nodes={self.shape['nodes']}"
+                f", backend={self.backend!r}, device={self.device}"
+                f"{', host-staged' if self.host_staged else ''})")
+
+    def rank(self, axis):
+        """This rank's index along ``axis`` (``jax.lax.axis_index``)."""
+        return dist.get_group_rank(self._groups[axis], dist.get_rank())
+
+    def size(self, axis):
+        """Number of ranks along ``axis`` (``mesh.shape[axis]``)."""
+        return self.shape[axis]
+
+    def _out(self, x):
+        """The tensor a collective runs on: a host copy where gloo moves a
+        CUDA tensor, else a contiguous copy (the collectives work in
+        place)."""
+        return x.detach().to("cpu" if self.host_staged else x.device,
+                             copy=True).contiguous()
+
+    def _back(self, y, like):
+        return y.to(like.device) if self.host_staged else y
+
+    def psum(self, x, axis):
+        """Sum of ``x`` over the ranks of ``axis`` (``all_reduce``)."""
+        if self.shape[axis] == 1:
+            return x
+        y = self._out(x)
+        dist.all_reduce(y, group=self._groups[axis])
+        return self._back(y, x)
+
+    def all_gather(self, x, axis):
+        """The ``x`` of every rank of ``axis`` stacked on a new leading axis,
+        in rank order."""
+        if self.shape[axis] == 1:
+            return x[None]
+        y = self._out(x)
+        out = [torch.empty_like(y) for _ in range(self.shape[axis])]
+        dist.all_gather(out, y, group=self._groups[axis])
+        return self._back(torch.stack(out), x)
+
+    def neighbour_exchange(self, top, bottom, axis):
+        """Chain exchange along ``axis``: every rank sends ``top`` to the
+        previous rank and ``bottom`` to the next one.  Returns
+        ``(from_prev, from_next)``: the previous rank's ``bottom`` and the
+        next rank's ``top``, zeros at the chain ends (as ``ppermute``
+        zero-fills a missing source).  Either argument may be None (nothing
+        sent that way; None back)."""
+        group = self._groups[axis]
+        r, size = self.rank(axis), self.shape[axis]
+        from_prev = None if bottom is None else torch.zeros_like(bottom)
+        from_next = None if top is None else torch.zeros_like(top)
+        ops, staged = [], []
+
+        def send(x, peer):
+            ops.append(dist.P2POp(dist.isend, self._out(x),
+                                  dist.get_global_rank(group, peer), group))
+
+        def recv(buf, peer):
+            dst = torch.empty_like(buf, device="cpu") if self.host_staged \
+                else buf
+            ops.append(dist.P2POp(dist.irecv, dst,
+                                  dist.get_global_rank(group, peer), group))
+            staged.append((buf, dst))
+
+        if top is not None:  # tops travel up the chain
+            if r > 0:
+                send(top, r - 1)
+            if r < size - 1:
+                recv(from_next, r + 1)
+        if bottom is not None:  # bottoms travel down
+            if r < size - 1:
+                send(bottom, r + 1)
+            if r > 0:
+                recv(from_prev, r - 1)
+        if ops:
+            for work in dist.batch_isend_irecv(ops):
+                work.wait()
+            for buf, dst in staged:
+                if dst is not buf:
+                    buf.copy_(dst)
+        return from_prev, from_next
+
+
+def make_mesh(rows=None, nodes=1, device=None, multihost=False,
+              backend=None):
+    """A ``(rows, nodes)`` :class:`Mesh` over the ranks of the default
+    process group.
+
+    ``multihost=True`` first wires the group from the torchrun variables
+    (:func:`initialize_distributed`).  Where no group exists yet and no
+    cluster is configured, a world of one rank is started over an in-memory
+    store (the single-process mesh).  ``device`` is the card unless the
+    caller asks for the CPU; ``backend`` defaults to the one that goes with
+    it (NCCL for CUDA, gloo for the CPU).  The mesh's communication device
+    follows the backend: gloo meshes are built over the CPU, and with a CUDA
+    ``device`` their collectives stage through the host."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    device = resolve_device(device)
+    backend = backend or default_backend(device)
+    if dist.is_initialized() and backend not in dist.get_backend():
+        raise ValueError(f"the process group runs {dist.get_backend()!r}, "
+                         f"the mesh asks for {backend!r}")
+    if multihost or not dist.is_initialized():
+        initialize_distributed(backend=backend, device=device)
+    if not dist.is_initialized():
+        if backend == "nccl":
+            torch.cuda.set_device(_local_rank())
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    world = dist.get_world_size()
+    if rows is None:
+        rows = world // nodes
+    if rows * nodes != world:
+        raise ValueError(f"mesh {rows}x{nodes} != {world} ranks")
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    comm = "cuda" if backend == "nccl" else "cpu"
+    dm = init_device_mesh(comm, (rows, nodes), mesh_dim_names=AXES)
+    return Mesh(dm, device, backend)

@@ -9,8 +9,8 @@ against the block right-hand side; the moments
 over the node axis.  A problem without a dense ``Mder`` (or a caller that
 asks for an ``integrator``) takes the per-node loop through the
 linear-solver layer instead; nothing else falls back, so a device error in
-the batched path reaches the caller.  The node axis over several devices
-(``mesh=``) is not in the port yet.
+the batched path reaches the caller.  ``contour_beyn(mesh=...)`` splits the
+nodes over the ranks of a mesh (``parallel/quadrature.py``).
 
 The pluggable ``MatrixIntegrator`` protocol is kept
 (``integrate_interval(integrator, dtype, f, gv, a, b, N, logger)``).
@@ -162,13 +162,6 @@ def _contour_moments(nep, sigma, radius, Vh, N, n_moments, linsolvercreator,
     return [S[..., j] / (2j * np.pi) for j in range(n_moments)]
 
 
-def _mesh_not_ported(mesh):
-    if mesh is not None:
-        raise NotImplementedError(
-            "contour_beyn(mesh=...) shards the quadrature nodes over several "
-            "devices, which the port does not have yet (ROADMAP A.18)")
-
-
 def contour_beyn(nep, dtype=None, integrator=None, tol=None, sigma=0.0,
                  logger=0, linsolvercreator=None, neigs=2, k=None, radius=1.0,
                  N=1000, errmeasure=None, sanity_check=True,
@@ -176,8 +169,14 @@ def contour_beyn(nep, dtype=None, integrator=None, tol=None, sigma=0.0,
                  device=None):
     """Beyn's contour integral method.  Returns ``(lam, V)``: eigenvalues
     (numpy) and eigenvectors (a tensor on the device).  ``chunk``: nodes
-    per stacked LU (each node a dense n x n matrix on the device)."""
-    _mesh_not_ported(mesh)
+    per stacked LU (each node a dense n x n matrix on the device).
+
+    ``mesh``: a :class:`neptpu_torch.parallel.Mesh` - the quadrature nodes
+    are then split over its ``mesh_axis`` (every rank solves its own nodes,
+    the moments are reduced with one psum); every rank calls this with the
+    same arguments and gets the same result, on ``mesh.device``."""
+    if mesh is not None:
+        device = mesh.device
     device = solver_device(nep, device)
     dtype, em, lg = setup_solver(nep, dtype, errmeasure, logger)
     if tol is None:
@@ -204,8 +203,14 @@ def contour_beyn(nep, dtype=None, integrator=None, tol=None, sigma=0.0,
                          device=device).to(torch.complex128)
 
     lg.info("Computing integrals")
-    A0, A1 = _contour_moments(nep, sigma, radius, Vh, N, 2, linsolvercreator,
-                              integrator, lg, chunk)
+    if mesh is not None:
+        from ..parallel.quadrature import sharded_contour_moments
+
+        A0, A1 = sharded_contour_moments(nep, sigma, radius, Vh, N, 2, mesh,
+                                         axis=mesh_axis, chunk=chunk)
+    else:
+        A0, A1 = _contour_moments(nep, sigma, radius, Vh, N, 2,
+                                  linsolvercreator, integrator, lg, chunk)
 
     lg.info("Computing SVD prepare for eigenvalue extraction")
     V, S, Wh = torch.linalg.svd(A0, full_matrices=False)

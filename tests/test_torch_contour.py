@@ -108,15 +108,26 @@ def test_contour_beyn_dep_distributed(distributed):
 
 def test_contour_beyn_checked_and_mesh(distributed):
     """The default ``sanity_check`` path (errors measured, eigenvalues
-    outside the contour last), and ``mesh=`` (the node axis over several
-    devices) raising."""
+    outside the contour last), and ``mesh=`` (the node axis over the ranks
+    of a mesh) on a one-rank gloo mesh equal to the serial result."""
+    import torch.distributed as dist
+
+    from neptpu_torch.parallel import make_mesh
+
     tn, jn = distributed
     kw = dict(sigma=0.0, radius=1.5, neigs=2, N=64, k=3)
-    lt, _ = nt.contour_beyn(tn, device=CPU, **kw)
+    lt, Vt = nt.contour_beyn(tn, device=CPU, **kw)
     lj, _ = neptpu.contour_beyn(jn, **kw)
     _same_set(lt, np.asarray(lj))
-    with pytest.raises(NotImplementedError, match="A.18"):
-        nt.contour_beyn(tn, device=CPU, mesh=object(), **kw)
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh(rows=1, nodes=1, device=CPU, backend="gloo")
+        assert mesh.backend == "gloo" and not mesh.host_staged
+        lm, Vm = nt.contour_beyn(tn, device=CPU, mesh=mesh, **kw)
+    finally:
+        dist.destroy_process_group()
+    _same_set(lm, lt, rel=1e-12)
+    _close(torch.abs(Vm), torch.abs(Vt))
 
 
 def test_contour_beyn_batched_equals_loop():

@@ -624,3 +624,67 @@ def test_complex_scans_on_the_card_match_cpu(cuda):
                                 device=CPU, **kw)
     assert launched == 30 and len(lg) == len(lc) >= 4
     assert np.max(np.abs(np.sort_complex(lg) - np.sort_complex(lc))) < 1e-9
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12)])
+def test_window_apply_matches_twin(cuda, dtype, rtol):
+    """Kernel B1 on a rank's window (the block's bank zero-padded by its
+    halos, the operand ``[halo_prev; W_d; halo_next]``): one pair launch,
+    against the plain twin on the same window and the serial apply's rows."""
+    from neptpu_torch.parallel.halo import _window_bank, window_operand
+
+    offs, n, m, blk, lo = [-101, -100, -1, 0, 1, 100, 101], 1000, 2, 250, 1
+    mats = _mats(offs, n, m)
+    full = DiaTermBank.from_matrices(mats, dtype=dtype, device=cuda)
+    win = _window_bank(full.data[:, :, lo * blk:(lo + 1) * blk].contiguous(),
+                       full.offsets, 101, 101)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    Wre = torch.randn((m, n), generator=g, device=cuda, dtype=dtype)
+    Wim = torch.randn((m, n), generator=g, device=cuda, dtype=dtype)
+    ops = [window_operand(W[:, blk:2 * blk], W[:, blk - 101:blk],
+                          W[:, 2 * blk:2 * blk + 101]) for W in (Wre, Wim)]
+    assert tuple(win.data.shape) == (m, len(offs), blk + 202)
+    before = dict(dia_kernel.DIA_SPMV.entry_counts)
+    yre, yim = win.lincomb_apply_pair_t(*ops)
+    torch.cuda.synchronize()
+    sfx = "f32" if dtype == torch.float32 else "f64"
+    assert (dia_kernel.DIA_SPMV.entry_counts[f"dia_lincomb_pair_{sfx}"]
+            == before[f"dia_lincomb_pair_{sfx}"] + 1)
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(win.data, win.offsets, *ops)
+    assert rel_err(yre.cpu().numpy(), pre.cpu().numpy()) < rtol
+    assert rel_err(yim.cpu().numpy(), pim.cpu().numpy()) < rtol
+    ref = full.lincomb_apply_t(Wre)[blk:2 * blk]
+    assert rel_err(yre[101:101 + blk].cpu().numpy(), ref.cpu().numpy()) < rtol
+
+
+@pytest.mark.cuda
+def test_iar_real_sharded_one_rank_nccl(cuda):
+    """``iar_real_sharded`` on a one-rank NCCL mesh: one float64 pair
+    launch a step on the rank's window, the eigenvalues of the serial
+    ``iar_real`` on the card."""
+    import torch.distributed as dist
+
+    import neptpu_torch as nt
+    from neptpu_torch.parallel import make_mesh
+    from neptpu_torch.solvers.iar_sharded import iar_real_sharded
+
+    dep = nt.nep_gallery("dep0_tridiag", 512, device=cuda)
+    kw = dict(sigma=-0.2 + 0.1j, maxit=40, neigs=4, tol=1e-6,
+              dtype=torch.float64)
+    assert not dist.is_initialized()
+    try:
+        mesh = make_mesh(device=cuda)
+        assert mesh.backend == "nccl" and not mesh.host_staged
+        before = dia_kernel.DIA_SPMV.entry_counts["dia_lincomb_pair_f64"]
+        lam, Q, info = iar_real_sharded(dep, mesh, return_info=True, **kw)
+        launched = (dia_kernel.DIA_SPMV.entry_counts["dia_lincomb_pair_f64"]
+                    - before)
+    finally:
+        dist.destroy_process_group()
+    lam_s, _ = nt.iar_real(dep, device=cuda, **kw)
+    assert launched == 40 and info["window"] == (2, 3, 514)
+    assert len(lam) == len(lam_s) >= 4
+    assert np.max(np.abs(np.sort_complex(lam) - np.sort_complex(lam_s))) \
+        < 1e-10

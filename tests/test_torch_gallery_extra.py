@@ -262,3 +262,42 @@ def test_dtn_dimer_from_petsc_files(dimer_dir):
         bad = os.path.join(dimer_dir, "bad.bin")
         np.array([7, 1], ">i4").tofile(bad)
         td.naive_petsc_read(bad)
+
+
+def test_fiber_quasinewton_parts_only_in_the_first_solve():
+    """Where the two packages' ``quasinewton`` on fiber from 7.14e-7 part:
+    every ingredient of its first step (M(lam0), u = M(lam0) v,
+    w = M'(lam0) v, the Newton correction of lam) is the same to the last
+    bit or to rounding, and the linear solve dv = -M(lam0)^-1 z, of a matrix
+    with condition ~8e10, is backward stable in both (the port's getrf and
+    the JAX package's LAPACK) but parts at ~3e-8 relative, which the next
+    step's lam update amplifies."""
+    from neptpu.ops.linsolve import FactorizeLinSolver as JSolver
+    from neptpu_torch.ops.linsolve import FactorizeLinSolver as TSolver
+
+    import jax.numpy as jnp
+
+    jn = neptpu.nep_gallery("nlevp_native_fiber")
+    tn = neptpu_torch.nep_gallery("nlevp_native_fiber", device=CPU)
+    lam0 = 7.14e-7 + 0j
+    v = np.ones(tn.n, dtype=complex)
+    one_j, one_t = jnp.ones((1,)), torch.ones(1)
+    u = [np.asarray(neptpu.compute_Mlincomb(jn, lam0, jnp.asarray(v)[:, None],
+                                            one_j, startder=d))
+         for d in (0, 1)]
+    ut = [neptpu_torch.compute_Mlincomb(tn, lam0, torch.as_tensor(v)[:, None],
+                                        one_t, startder=d).numpy()
+          for d in (0, 1)]
+    for a, b in zip(ut, u):
+        assert rel_err(a, b) < 1e-15
+    M = tn.Mder_dense(lam0).numpy()
+    assert rel_err(M, np.asarray(jn.Mder_dense(lam0))) < 1e-15
+    assert np.linalg.cond(M) > 1e10
+    z = (-np.vdot(v, u[0]) / np.vdot(v, u[1])) * u[1] + u[0]
+    xj = np.asarray(JSolver(jn, jnp.asarray(lam0)).solve(jnp.asarray(z)))
+    xt = TSolver(tn, torch.tensor(lam0)).solve(torch.as_tensor(z)).numpy()
+    for x in (xj, xt):  # backward stable: below n eps = 5.3e-13
+        back = np.linalg.norm(M @ x - z) / (
+            np.linalg.norm(M, 2) * np.linalg.norm(x) + np.linalg.norm(z))
+        assert back < 1e-13
+    assert 1e-12 < rel_err(xt, xj) < 1e-2

@@ -36,6 +36,8 @@ import neptpu_torch.models.derspmf, neptpu_torch.models.helpers
 import neptpu_torch.solvers.iar_chebyshev, neptpu_torch.solvers.ilan
 import neptpu_torch.solvers.infbilanczos, neptpu_torch.solvers.blocknewton
 import neptpu_torch.solvers.broyden
+import neptpu_torch.parallel, neptpu_torch.parallel.mixed_sharded
+import neptpu_torch.solvers.iar_sharded
 dep = neptpu_torch.nep_gallery('dep0_tridiag', 40, device='cpu')
 neptpu_torch.iar_real(dep, sigma=-0.2, maxit=8, neigs=1, device='cpu')
 neptpu_torch.tiar_real(dep, sigma=-0.2, maxit=8, neigs=1, device='cpu')
@@ -157,7 +159,10 @@ def test_every_module_of_the_port_imports_alone():
 
 def test_sources_never_import_jax_or_neptpu():
     pkg = os.path.join(REPO, "neptpu_torch")
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    # the port, its smoke run, and the sharded tests' rank-worker module
+    # (the ranks it spawns record that they loaded no JAX)
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_dist_worker.py")]
     for root, _, names in os.walk(pkg):
         files += [os.path.join(root, f) for f in names if f.endswith(".py")]
     for path in files:
@@ -169,17 +174,17 @@ def test_sources_never_import_jax_or_neptpu():
                     assert top not in ("jax", "jaxlib", "neptpu"), (path, line)
 
 
-# what of the JAX package has no counterpart in the port: the one module
-# slice still to come (the sharded layer: ``parallel/*`` beyond the SPIKE
-# helpers and the sharded IAR), the TPU kernel that the port's hand-written
-# CUDA kernel replaces, and the ctypes loader of the JAX package's native
-# helper library
-A18_MODULES = {"parallel/halo.py", "parallel/mesh.py",
-               "parallel/mixed_sharded.py", "parallel/quadrature.py",
-               "parallel/spmv.py", "solvers/iar_sharded.py"}
+# what of the JAX package has no counterpart in the port: the TPU kernel
+# that the port's hand-written CUDA kernel replaces, and the ctypes loader of
+# the JAX package's native helper library.  Every other module, the sharded
+# layer included, has its counterpart.
 REPLACED_MODULES = {"ops/pallas_spmv.py", "native/__init__.py"}
-# top-level names of the JAX package that only the sharded slice brings
-A18_NAMES = set()
+# top-level names of the JAX package with no counterpart in the port
+MISSING_NAMES = set()
+# names of ``neptpu.parallel.__all__`` with no counterpart: ``P`` and
+# ``NamedSharding`` re-export ``jax.sharding``, which places a global array
+# on a device mesh - an SPMD rank holds its own block and places nothing
+NO_COUNTERPART = {"P", "NamedSharding"}
 
 
 def _py_files(root):
@@ -194,17 +199,21 @@ def _py_files(root):
 
 def test_only_the_sharded_slice_is_missing():
     """Every module and every top-level name of the JAX package has its
-    counterpart in the port, except the sharded slice's (and the TPU kernel
-    and native loader that the port replaces); the gallery registries hold
-    the same keys."""
+    counterpart in the port, except the TPU kernel and the native loader
+    that the port replaces; the sharded layer's names too, except the two
+    ``jax.sharding`` re-exports; the gallery registries hold the same
+    keys."""
     jax_files = _py_files(os.path.join(REPO, "neptpu"))
     port_files = _py_files(os.path.join(REPO, "neptpu_torch"))
-    assert jax_files - port_files == A18_MODULES | REPLACED_MODULES
+    assert jax_files - port_files == REPLACED_MODULES
     probe = (
         "import jax; jax.config.update('jax_platforms', 'cpu')\n"
         "import neptpu, neptpu_torch\n"
+        "import neptpu.parallel, neptpu_torch.parallel\n"
         "a = {n for n in dir(neptpu) if not n.startswith('_')}\n"
         "b = {n for n in dir(neptpu_torch) if not n.startswith('_')}\n"
+        "print(sorted(set(neptpu.parallel.__all__)\n"
+        "             - set(neptpu_torch.parallel.__all__)))\n"
         "print(sorted(a - b))\n"
         "from neptpu.models.gallery import GALLERY as G1\n"
         "from neptpu_torch.models.gallery import GALLERY as G2\n"
@@ -213,6 +222,7 @@ def test_only_the_sharded_slice_is_missing():
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
-    missing, gallery = out.stdout.strip().splitlines()[-2:]
-    assert missing == str(sorted(A18_NAMES))
+    parallel, missing, gallery = out.stdout.strip().splitlines()[-3:]
+    assert parallel == str(sorted(NO_COUNTERPART))
+    assert missing == str(sorted(MISSING_NAMES))
     assert gallery == "[] 30"

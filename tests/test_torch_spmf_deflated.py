@@ -12,13 +12,12 @@ import math
 
 import numpy as np
 import pytest
-import scipy.sparse as sp
 import torch
 
 import jax.numpy as jnp
 
 from torch_port_helpers import (CPU, backward_errmeasure, conj_set_gap,
-                                rel_err)
+                                rel_err, small_gun_ops)
 
 import neptpu
 import neptpu_torch
@@ -36,22 +35,8 @@ jspmf_real = importlib.import_module("neptpu.solvers.spmf_real")
 SIGMA = 30 + 1j
 
 
-def _small_gun_ops(n=60, seed=0):
-    """The operands of ``tests/test_spmf_real.py``'s ``_small_gun``: a PEP
-    (K, -M) plus W1, W2 = W1^T on i sqrt(lam) and i sqrt(lam - 9)."""
-    rng = np.random.default_rng(seed)
-    K = sp.diags([np.full(n - 1, -1.0), np.full(n, 2.4),
-                  np.full(n - 1, -1.0)], [-1, 0, 1]).tocsr() * (n + 1)
-    M = sp.diags(np.full(n, 1.0) + 0.1 * np.cos(np.arange(n))).tocsr()
-    idx = rng.choice(n, size=6, replace=False)
-    vals = rng.standard_normal((6, 6)) * 0.3
-    W1 = sp.csr_matrix((vals.ravel(), (np.repeat(idx, 6), np.tile(idx, 6))),
-                       shape=(n, n))
-    return K, (-M).tocsr(), W1, W1.T.tocsr()
-
-
 def _small_gun_pair(n=60):
-    K, mM, W1, W2 = _small_gun_ops(n)
+    K, mM, W1, W2 = small_gun_ops(n)
     jnep = neptpu.SumNEP(neptpu.PEP([K, mM]),
                          neptpu.SPMF_NEP([W1, W2], [j_i_sqrt(0.0),
                                                     j_i_sqrt(9.0)]))

@@ -42,6 +42,20 @@ def small_gun_like(nx=24, seed=0):
     return K, M, W1, W2
 
 
+
+def small_gun_ops(n=60, seed=0):
+    """The operands of ``tests/test_spmf_real.py``'s ``_small_gun``: a PEP
+    (K, -M) plus W1, W2 = W1^T on i sqrt(lam) and i sqrt(lam - 9)."""
+    rng = np.random.default_rng(seed)
+    K = sp.diags([np.full(n - 1, -1.0), np.full(n, 2.4),
+                  np.full(n - 1, -1.0)], [-1, 0, 1]).tocsr() * (n + 1)
+    M = sp.diags(np.full(n, 1.0) + 0.1 * np.cos(np.arange(n))).tocsr()
+    idx = rng.choice(n, size=6, replace=False)
+    vals = rng.standard_normal((6, 6)) * 0.3
+    W1 = sp.csr_matrix((vals.ravel(), (np.repeat(idx, 6), np.tile(idx, 6))),
+                       shape=(n, n))
+    return K, (-M).tocsr(), W1, W1.T.tocsr()
+
 def to_spec(obj):
     """A JAX pytree object (bank or solver) -> the numpy spec triple
     ``(kind, leaves, aux)`` that ``neptpu_torch.interop`` reads."""
