@@ -138,10 +138,25 @@ Phases, a few informative lines each (any failure exits non-zero):
    the kernel checks ran at; within 180 s.  One card gives correctness,
    not scaling.
 
+10. scan-graph: every scan above steps through one captured CUDA graph a
+   scan (the step's static-shape form: the step index a device tensor, the
+   first step eager as the capture's warm-up, then one replay a step); here
+   each runs again beside the eager step loop (the comparator, by its
+   private name) on the same bank, solver and start - gun_like and wep's
+   three shifts (``iar_real_spmf``, float32), the delay problem's
+   ``iar_real`` and ``tiar_real`` (float32), the deflated wep scan and
+   ``tiar_jitted_spmf`` on gun_like (complex128): ``t_scan`` and a step's
+   time without the host checks for both, capture seconds, replays and host
+   graph launches a step, peak memory; gates: the same steps, launches and
+   eigenvalues, the Hessenberg within rel 1e-6 (float32) or 1e-12, one
+   replay a step after the warm-up; within 150 s.
+
 With ``--profile``, one shift's factorization and scan of gun_like and of wep
 run once more under ``torch.profiler`` (device busy share, time by kernel),
-and the device operations per scan step at gun_like, wep and dep are counted,
-the copy and gather kernels among them apart.
+[scan-graph] prints each form's device busy share for gun_like, wep's first
+shift, the delay problem's scans and ``tiar_jitted_spmf``, and the device
+operations per scan step at gun_like, wep and dep are counted for the graph
+and the eager comparator, the copy and gather kernels among them apart.
 
 The line before the last is a JSON object describing the kernels; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without a
@@ -891,7 +906,9 @@ def run_time_to_tol(torch, dia_kernel, key, make_nep, sigma, gamma=1.0,
     print(f"[main] {key} t_problem={t['problem']:.3f} s t_bank="
           f"{t['bank']:.3f} s t_table={tsum('t_table'):.3f} s t_factorize="
           f"{tsum('t_factorize'):.3f} s t_scan={tsum('t_scan'):.3f} s "
-          f"(host checks {tsum('t_check'):.3f} s) t_cluster="
+          f"(host checks {tsum('t_check'):.3f} s; graph capture "
+          f"{sum(i['graph']['capture_s'] for i in per):.4f} s, replays "
+          f"{[i['graph']['replays'] for i in per]}) t_cluster="
           f"{t['cluster']:.3f} s t_refine={t['refine']:.3f} s "
           f"wall={wall:.3f} s peak_device_mem="
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
@@ -1052,7 +1069,10 @@ def phase_dep(torch, dia_kernel, cfg):
               f"{len(lams)} converged(backward<={tol:g})={nconv} (need {k}) "
               f"best10_max_backward={errs[:k].max():.3e} t_factorize="
               f"{info['t_factorize']:.3f} s t_scan={info['t_scan']:.3f} s "
-              f"t_check={info['t_check']:.3f} s t_host_errors={t_err:.3f} s "
+              f"t_check={info['t_check']:.3f} s (graph capture "
+              f"{info['graph']['capture_s']:.4f} s, "
+              f"{info['graph']['replays']} replays) t_host_errors="
+              f"{t_err:.3f} s "
               f"wall={t_solve + t_err:.3f} s launches="
               f"{ {k_: v for k_, v in entry.items() if v} } peak_device_mem="
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
@@ -1925,16 +1945,18 @@ def _count_device_ops(torch, fn):
 
 def phase_step_launches(torch):
     """Device operations per complex-as-real scan step at gun_like, wep and
-    dep, and how many of them are copy or gather kernels.  Each scan runs
-    twice under ``torch.profiler`` on one prebuilt bank and factorization
-    with the same basis size (maxit 20) and stops at its first convergence
-    check, after 5 or after 15 steps (every pair counts as converged); the
-    difference over the 10 steps is the step's count (set-up and the Ritz
-    extraction cancel, every tensor has the same shape in both runs; the
-    scaled mode is the one the main path runs in)."""
+    dep, and how many of them are copy or gather kernels, for the graph
+    path and for the eager comparator.  Each scan runs twice under
+    ``torch.profiler`` on one prebuilt bank and factorization with the same
+    basis size (maxit 20) and stops at its first convergence check, after 5
+    or after 15 steps (every pair counts as converged); the difference over
+    the 10 steps is the step's count (set-up, the warm-up step, the capture
+    and the Ritz extraction cancel, every tensor has the same shape in both
+    runs; the scaled mode is the one the main path runs in)."""
     from neptpu_torch import iar_real, nep_gallery
     from neptpu_torch.ops.mixed import make_mixed_bank
     from neptpu_torch.solvers.iar_real import dep_shift_block_lu
+    from neptpu_torch.solvers.scan_graph import _eager_loop
     from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
                                                 iar_real_spmf)
 
@@ -1942,11 +1964,18 @@ def phase_step_launches(torch):
         return 0.0  # converged at the first check, and no residual work
 
     def report(key, run):
-        ops = [_count_device_ops(torch, lambda: run(k))
-               for k in (5, 15, 5, 15)]
-        total, copies = (ops[1] + ops[3] - ops[0] - ops[2]) / 20
-        print(f"[step] {key}: {total:g} device operations per scan step, "
-              f"{copies:g} of them copy or gather kernels", flush=True)
+        for form in ("graph", "eager comparator"):
+            def count(k):
+                if form == "graph":
+                    return _count_device_ops(torch, lambda: run(k))
+                with _eager_loop():
+                    return _count_device_ops(torch, lambda: run(k))
+
+            ops = [count(k) for k in (5, 15, 5, 15)]
+            total, copies = (ops[1] + ops[3] - ops[0] - ops[2]) / 20
+            print(f"[step] {key} ({form}): {total:g} device operations per "
+                  f"scan step, {copies:g} of them copy or gather kernels",
+                  flush=True)
 
     common = dict(maxit=20, neigs=1, tol=1e300, dtype=torch.float32,
                   errmeasure=zero, device=DEVICE)
@@ -2022,6 +2051,242 @@ def phase_profile(torch, trace_path, key, make_nep, sigma, gamma, maxit,
             print(f"[profile] {name[:60]}: {cnt} launches, {us / cnt:.2f} us "
                   f"device time each, {100 * us / busy_us:.2f}% of device "
                   "time", flush=True)
+
+
+# [scan-graph]: the scans whose step the card replays as a captured CUDA
+# graph, each beside the eager step loop on the same bank, solver and start;
+# the gate's tolerance on the Hessenberg by dtype; turns: how many runs of
+# each form, in the order graph, eager, eager, graph
+SCAN_GRAPH = dict(tol={"float32": 1e-6, "float64": 1e-12,
+                       "complex128": 1e-12}, budget=150.0)
+
+
+def _busy(torch, fn):
+    """``(wall s, device busy s, device ops)`` of ``fn()`` under
+    ``torch.profiler`` (the union of the traced device intervals)."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        dev = _device_events(path)
+    busy_us, end = 0.0, -1.0
+    for a, b in sorted((e["ts"], e["ts"] + e["dur"]) for e in dev):
+        busy_us += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return wall, busy_us / 1e6, len(dev)
+
+
+def _scan_pair(torch, dia_kernel, key, dtype, run, turns=2, profile=False):
+    """One scan of [scan-graph] run through the graph and as the eager
+    comparator (``_eager_loop``) in turns (graph, eager[, eager, graph]);
+    prints both and gates their equality.  ``run()`` returns ``(lams,
+    info)``; the infos of a restarted scan carry per-sweep lists."""
+    from neptpu_torch.solvers.scan_graph import _eager_loop
+
+    out = {"graph": [], "eager": []}
+    order = ["graph", "eager", "eager", "graph"][:2 * turns]
+    for form in order:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dia_kernel.DIA_SPMV.snapshot()
+        t0 = time.perf_counter()
+        if form == "eager":
+            with _eager_loop():
+                lams, info = run()
+        else:
+            lams, info = run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        out[form].append(dict(
+            lams=np.sort_complex(np.asarray(lams)), info=info, wall=wall,
+            launches=dia_kernel.DIA_SPMV.launches_since(before)[1],
+            peak=torch.cuda.max_memory_allocated() / 2**20))
+    g, e = out["graph"][0], out["eager"][0]
+    sweeps = "graph_sweeps" in g["info"]
+
+    def per(info, name):
+        return info[f"{name}_sweeps"] if sweeps else [info[name]]
+
+    steps = sum(per(g["info"], "k_done"))
+    stats = per(g["info"], "graph")
+    capture = sum(st["capture_s"] for st in stats)
+    replays = sum(st["replays"] for st in stats)
+    warm = sum(st["eager_steps"] for st in stats)
+
+    def step_ms(r):
+        t_check = r["info"].get("t_check", 0.0)
+        return (r["info"]["t_scan"] - t_check) / steps * 1e3
+
+    h_gap = max(float(np.linalg.norm(a - b) / np.linalg.norm(b))
+                for a, b in zip(per(g["info"], "hessenberg"),
+                                per(e["info"], "hessenberg")))
+    lam_gap = float(np.max(np.abs(g["lams"] - e["lams"])
+                           / np.abs(e["lams"]), initial=0.0))
+    line = {form: ", ".join(
+        f"t_scan {r['info']['t_scan']:.3f} s ({step_ms(r):.3f} ms a step, "
+        f"checks {r['info'].get('t_check', 0.0):.3f} s) wall {r['wall']:.3f}"
+        f" s peak {r['peak']:.1f} MiB" for r in out[form])
+        for form in ("graph", "eager")}
+    print(f"[scan-graph] {key} {dtype}: {steps} steps in "
+          f"{len(stats)} scan(s); graph: {line['graph']}; eager comparator: "
+          f"{line['eager']}; capture {capture:.4f} s, {replays} replays + "
+          f"{warm} warm-up step(s) = {replays / max(steps - warm, 1):.3f} "
+          f"host graph launches a step after the warm-up; launches "
+          f"{ {k: v for k, v in g['launches'].items() if v} }; Hessenberg "
+          f"rel gap {h_gap:.3e}, eigenvalue rel gap {lam_gap:.3e}",
+          flush=True)
+    tol = SCAN_GRAPH["tol"][dtype]
+    for r in out["graph"] + out["eager"]:
+        check(per(r["info"], "k_done") == per(g["info"], "k_done")
+              and r["launches"] == g["launches"]
+              and len(r["lams"]) == len(g["lams"]) > 0,
+              f"scan-graph {key}: the runs differ in steps, launches or "
+              "pairs")
+    check(all(st["graphed"] and st["eager_steps"] == 1
+              and st["replays"] == k - 1
+              for st, k in zip(stats, per(g["info"], "k_done"))),
+          f"scan-graph {key}: not one replay a step after the warm-up: "
+          f"{stats}")
+    check(not any(st["graphed"] for st in per(e["info"], "graph")),
+          f"scan-graph {key}: the eager comparator ran a graph")
+    check(h_gap <= tol, f"scan-graph {key}: Hessenberg rel gap {h_gap:.3e} "
+                        f"(> {tol:g})")
+    check(lam_gap <= 100 * tol, f"scan-graph {key}: eigenvalues differ by "
+                                f"rel {lam_gap:.3e}")
+    if profile:
+        busy = {}
+        for form in ("graph", "eager"):
+            if form == "eager":
+                with _eager_loop():
+                    busy[form] = _busy(torch, run)
+            else:
+                busy[form] = _busy(torch, run)
+        print(f"[scan-graph] {key} under the profiler: " + "; ".join(
+            f"{form} wall {w:.3f} s, device busy {b:.4f} s = "
+            f"{100 * b / w:.1f}%, {n} device ops"
+            for form, (w, b, n) in busy.items()), flush=True)
+    return {"graph_step_ms": float(np.mean([step_ms(r)
+                                            for r in out["graph"]])),
+            "eager_step_ms": float(np.mean([step_ms(r)
+                                            for r in out["eager"]])),
+            "capture_s": capture}
+
+
+def phase_scan_graph(torch, dia_kernel, profile=False):
+    """[scan-graph]: each ported scan through the captured graph and as the
+    eager step loop (the comparator, under its private name), on the same
+    bank, solver and start: gun_like and wep (its three shifts) through
+    ``iar_real_spmf`` (float32), the delay problem's ``iar_real`` and
+    ``tiar_real`` (float32), the deflated wep scan, ``tiar_jitted_spmf`` on
+    gun_like (complex128).  Printed: ``t_scan`` and a step's time without
+    the host checks for both forms, capture seconds, replays and host graph
+    launches a step, peak memory; with ``profile`` the device's busy share
+    of each form.  Gates: the same steps, launches and converged
+    eigenvalues, the Hessenberg within rel 1e-6 (float32) or 1e-12, one
+    replay a step after the warm-up step, the phase within its budget."""
+    from neptpu_torch import iar_real, nep_gallery, tiar_real
+    from neptpu_torch import iar_real_spmf_deflated, tiar_jitted_spmf
+    from neptpu_torch.ops.mixed import make_mixed_bank
+    from neptpu_torch.ops.partitioned import build_spmf_shift_solver
+    from neptpu_torch.solvers.iar_real import dep_shift_block_lu
+    from neptpu_torch.solvers.spmf_real import (collect_spmf_terms,
+                                                iar_real_spmf)
+
+    t_phase = time.perf_counter()
+    rows = {}
+    f32 = torch.float32
+    for key, make, sigmas, gamma, maxit, neigs, tol in (
+            ("gun_like", lambda: nep_gallery("gun_like", device=DEVICE),
+             [SIGMA], GAMMA, 60, 10, 1e-6),
+            ("wep", lambda: wep_nep(WEP), WEP["sigmas"], 1.0, 100, 8, 1e-5)):
+        nep = make()
+        mats, fv = collect_spmf_terms(nep)
+        backward = backward_errmeasure(mats, fv)
+        bank = make_mixed_bank(mats, dtype=np.float32, device=DEVICE)
+        for i, sigma in enumerate(sigmas):
+            solver = build_spmf_shift_solver(mats, fv, sigma, dtype=f32,
+                                             device=DEVICE)
+
+            def run(sigma=sigma, solver=solver):
+                lams, _, info = iar_real_spmf(
+                    nep, sigma=sigma, gamma=gamma, maxit=maxit, neigs=neigs,
+                    tol=tol, check_error_every=20, dtype=f32,
+                    errmeasure=backward, bank=bank, lu_piv=solver,
+                    return_info=True, device=DEVICE)
+                return lams, info
+
+            name = key if len(sigmas) == 1 else f"{key} shift {i}"
+            rows[name] = _scan_pair(torch, dia_kernel, name, "float32", run,
+                                    turns=2 if key == "gun_like" else 1,
+                                    profile=profile and i == 0)
+            del solver
+        del nep, bank
+
+    dep, _, _, _ = dep_problem(DEP["nside"])
+    lu_piv = dep_shift_block_lu(dep, DEP["sigma"], dtype=f32, device=DEVICE)
+    for name, solve in (("iar_real", iar_real), ("tiar_real", tiar_real)):
+        def run(solve=solve):
+            lams, _, info = solve(dep, sigma=DEP["sigma"], maxit=DEP["maxit"],
+                                  neigs=DEP["maxit"], tol=np.inf, dtype=f32,
+                                  lu_piv=lu_piv, return_info=True,
+                                  device=DEVICE)
+            return lams, info
+
+        rows[f"dep {name}"] = _scan_pair(torch, dia_kernel, f"dep {name}",
+                                         "float32", run, turns=2,
+                                         profile=profile)
+    del dep, lu_piv
+
+    cfg = SPMF_DEFLATED["wep"]
+    wep = wep_nep(WEP)
+    mats, fv = collect_spmf_terms(wep)
+
+    def run_deflated():
+        D, _, info = iar_real_spmf_deflated(
+            wep, sigma=WEP["sigmas"][0], gamma=1.0, maxit=cfg["maxit"],
+            neigs=cfg["neigs"], tol=cfg["tol"],
+            check_error_every=cfg["check_every"], dtype=f32,
+            return_info=True, device=DEVICE)
+        return D, info
+
+    rows["wep deflated"] = _scan_pair(torch, dia_kernel, "wep deflated",
+                                      "float32", run_deflated, turns=1)
+    del wep
+    gun = nep_gallery("gun_like", device=DEVICE)
+    mats, fv = collect_spmf_terms(gun)
+    backward = backward_errmeasure(mats, fv)
+
+    def run_complex():
+        lams, _, info = tiar_jitted_spmf(
+            gun, sigma=SIGMA, gamma=GAMMA, maxit=COMPLEX_SCAN["maxit"],
+            neigs=COMPLEX_SCAN["neigs"], tol=COMPLEX_SCAN["tol"],
+            check_error_every=COMPLEX_SCAN["check_every"],
+            errmeasure=backward, return_info=True, device=DEVICE)
+        return lams, info
+
+    rows["tiar_jitted_spmf gun_like"] = _scan_pair(
+        torch, dia_kernel, "tiar_jitted_spmf gun_like", "complex128",
+        run_complex, turns=2, profile=profile)
+    t_phase = time.perf_counter() - t_phase
+    print(f"[scan-graph] per step, graph / eager comparator (ms): "
+          + "; ".join(f"{k} {r['graph_step_ms']:.3f} / "
+                      f"{r['eager_step_ms']:.3f}" for k, r in rows.items()),
+          flush=True)
+    print(f"[scan-graph] phase {t_phase:.3f} s (budget "
+          f"{SCAN_GRAPH['budget']:g} s)", flush=True)
+    check(t_phase <= SCAN_GRAPH["budget"],
+          f"scan-graph took {t_phase:.1f} s (> {SCAN_GRAPH['budget']:g} s)")
+    return rows
 
 
 # [wep-native]: the waveguide's native form at the wep configuration's size
@@ -2980,6 +3245,8 @@ def main():
     for key, launched in phase_complex_scan(torch, dia_kernel, gun, dep_nep,
                                             found).items():
         paths[f"complex-scan {key}"] = launched
+    # every ported scan through its graph beside the eager step loop
+    phase_scan_graph(torch, dia_kernel, profile=bool(args.profile))
     for key, launched in phase_gallery(torch, dia_kernel).items():
         paths[f"gallery {key}"] = launched
     # the sharded layer: one rank over NCCL, four ranks on the card

@@ -109,6 +109,26 @@ class KernelLibrary:
             for key in counts:
                 counts[key] = 0
 
+    def snapshot(self):
+        """A copy of the counts: ``(counts, entry_counts)``."""
+        return dict(self.counts), dict(self.entry_counts)
+
+    def launches_since(self, snapshot):
+        """The launches counted since ``snapshot``, in its form."""
+        return tuple({key: now[key] - then[key] for key in now}
+                     for now, then in zip((self.counts, self.entry_counts),
+                                          snapshot))
+
+    def add_counts(self, delta, times=1):
+        """Add ``times`` times the launches ``delta`` (as
+        :meth:`launches_since` gives them) to the counts.  A CUDA graph's
+        capture counts the launches it records though it runs none
+        (``times=-1`` takes them off again); a replay runs them without a
+        call that counts (``times=1`` a replay)."""
+        for counts, d in zip((self.counts, self.entry_counts), delta):
+            for key, v in d.items():
+                counts[key] += times * v
+
     def library_path(self):
         with open(self.source, "rb") as fh:
             digest = hashlib.sha256(fh.read() + " ".join(NVCC_FLAGS).encode())

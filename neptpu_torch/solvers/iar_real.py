@@ -11,11 +11,17 @@ so the port can be held against it step by step:
   :class:`DenseBlockLU` fallback);
 * DGKS orthogonalization against the stacked basis is paired real GEMMs.
 
-The JAX package compiles the steps into one ``lax.scan``; here they are an
-eager Python loop that writes IN PLACE into the preallocated
-``(m+1, m+1, n)`` basis tensors and the ``(m+1, m)`` Hessenberg pair (the JAX
-``.at[].set`` updates).  Ritz extraction runs on the host every
-``check_error_every`` steps.
+A step has the JAX package's static-shape form (its ``_step_fn``): the step
+index ``k`` is a 0-dim int64 tensor on the device, the block shift is a mask
+``jblk < k`` and a roll over the full ``(m+1, n)`` block, and the step reads
+``V[k-1]`` and writes ``V[k]`` and Hessenberg column ``k-1`` by index ops
+with that tensor, IN PLACE into the preallocated ``(m+1, m+1, n)`` basis pair
+and ``(m+1, m)`` Hessenberg pair (the JAX ``.at[].set`` updates).  Where the
+JAX package compiles the steps into one ``lax.scan``, the port captures one
+step as a CUDA graph per scan call and replays it once a step
+(:mod:`neptpu_torch.solvers.scan_graph`); on the CPU the same step runs in an
+eager loop.  Ritz extraction runs on the host every ``check_error_every``
+steps.
 
 Front ends: :func:`iar_real` for a delay eigenproblem (``DEP``: the table
 ``C[i, j] = gamma^j (-tau_i)^j e^{-tau_i sigma}``, the dense real 2n x 2n
@@ -33,6 +39,7 @@ import torch
 from ..config import finfo_max, to_torch_dtype
 from ..core.nep import compute_resnorm
 from .common import solver_device
+from .scan_graph import StepGraph
 
 __all__ = ["iar_real", "iar_real_scan", "run_iar_real", "dep_shift_block_lu",
            "dep_coeff_table", "block_assemble_lu", "DenseBlockLU",
@@ -224,77 +231,87 @@ class DeflationOps:
                 torch.cat([xim - (self.Xre @ pgim + self.Xim @ pgre), w0im]))
 
 
-def _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled, inv_theta,
-          defl=None):
-    """One complex-as-real IAR step, ``k`` the 1-based step index; updates
-    the carry ``(Vre, Vim, Hre, Him)`` in place and returns beta.
+def _step_fn(bank, m, Cre, Cim, gre, gim, solver, dt, scaled=False,
+             inv_theta=1.0, defl=None):
+    """One complex-as-real IAR step as ``step(carry, k)`` (the JAX
+    package's ``_step_fn``): ``k`` is the 1-based step index, a 0-dim int64
+    tensor on the carry's device; the step updates the carry ``(Vre, Vim,
+    Hre, Him)`` in place and returns beta.  Every shape is static and the
+    step reads ``k`` only on the device, so one captured CUDA graph serves
+    every ``k``.
 
     ``scaled``: run in the Taylor-normalized space ``u_j = (j!/theta^j) y_j``
     — the block shift carries a constant ``1/theta`` factor instead of
     ``1/(j+1)`` and the coefficient table must be the scaled table.
     ``defl``: a :class:`DeflationOps`; the basis then has length n + p while
     the bank and the shifted solve stay at length n."""
-    Vre, Vim, Hre, Him = carry
-    dt, dev = Vre.dtype, Vre.device
+    dev = Cre.device
     jblk = torch.arange(m + 1, device=dev)
-    # block shift of the last basis vector: row j+1 of y = s_j * V[k-1][j]
-    # for j < k (the JAX roll under the jblk < k mask), row 0 filled below
     if scaled:
-        sj = torch.full((k,), inv_theta, dtype=dt, device=dev)
+        sj = torch.full((m + 1,), inv_theta, dtype=dt, device=dev)
     else:
-        sj = (1.0 / (torch.arange(k, device=dev, dtype=torch.float64) + 1.0)
-              ).to(dt)
-    ytre = torch.zeros((m + 1, Vre.shape[2]), dtype=dt, device=dev)
-    ytim = torch.zeros_like(ytre)
-    ytre[1:k + 1] = Vre[k - 1, :k] * sj[:, None]
-    ytim[1:k + 1] = Vim[k - 1, :k] * sj[:, None]
+        sj = (1.0 / (jblk.to(torch.float64) + 1.0)).to(dt)
+    zero = torch.zeros((), dtype=dt, device=dev)
 
-    if defl is not None:
-        # Effenberger extension: the invariant-pair coupling folds into the
-        # same bank contraction via v'_l = v_l + X t_l
-        vpre, vpim = defl.extend(ytre, ytim)
-    else:
-        vpre, vpim = ytre, ytim
-    # term weights: W = Y @ C^T, complex split into four small GEMMs
-    WreT = Cre @ vpre - Cim @ vpim  # (terms, n)
-    WimT = Cre @ vpim + Cim @ vpre
-    if hasattr(bank, "lincomb_apply_split_t"):
-        zre, zim = bank.lincomb_apply_split_t(WreT, WimT)  # as held
-    else:
-        zre = bank.lincomb_apply(WreT.T)
-        zim = bank.lincomb_apply(WimT.T)
-    zre, zim = zre.to(dt), zim.to(dt)
-    # identity term: -gamma * y_1 (on the extended v'_1)
-    zre = zre - gre * vpre[1] + gim * vpim[1]
-    zim = zim - gre * vpim[1] - gim * vpre[1]
+    def step(carry, k):
+        Vre, Vim, Hre, Him = carry
+        km1 = (k - 1).view(1)
+        # block shift of the last basis vector: row j+1 of y = s_j V[k-1][j]
+        # for j < k, the mask and roll of the JAX step (row 0 filled below)
+        scale = torch.where(jblk < k, sj, zero)[:, None]
+        ytre = torch.roll(Vre.index_select(0, km1)[0] * scale, 1, 0)
+        ytim = torch.roll(Vim.index_select(0, km1)[0] * scale, 1, 0)
 
-    xre, xim = solver.solve_pair(zre, zim)
-    if defl is not None:
-        xre, xim = defl.border(xre, xim)
-    ytre[0] = -xre
-    ytim[0] = -xim
+        if defl is not None:
+            # Effenberger extension: the invariant-pair coupling folds into
+            # the same bank contraction via v'_l = v_l + X t_l
+            vpre, vpim = defl.extend(ytre, ytim)
+        else:
+            vpre, vpim = ytre, ytim
+        # term weights: W = Y @ C^T, complex split into four small GEMMs
+        WreT = Cre @ vpre - Cim @ vpim  # (terms, n)
+        WimT = Cre @ vpim + Cim @ vpre
+        if hasattr(bank, "lincomb_apply_split_t"):
+            zre, zim = bank.lincomb_apply_split_t(WreT, WimT)  # as held
+        else:
+            zre = bank.lincomb_apply(WreT.T)
+            zim = bank.lincomb_apply(WimT.T)
+        zre, zim = zre.to(dt), zim.to(dt)
+        # identity term: -gamma * y_1 (on the extended v'_1)
+        zre = zre - gre * vpre[1] + gim * vpim[1]
+        zim = zim - gre * vpim[1] - gim * vpre[1]
 
-    # DGKS (two-pass classical Gram-Schmidt) in paired-real arithmetic
-    wre, wim = ytre.reshape(-1), ytim.reshape(-1)
-    VreM = Vre.reshape(m + 1, -1)
-    VimM = Vim.reshape(m + 1, -1)
+        xre, xim = solver.solve_pair(zre, zim)
+        if defl is not None:
+            xre, xim = defl.border(xre, xim)
+        ytre[0] = -xre
+        ytim[0] = -xim
 
-    def cgs(wre, wim):
-        hre = VreM @ wre + VimM @ wim  # Re(conj(V) @ w)
-        him = VreM @ wim - VimM @ wre  # Im(conj(V) @ w)
-        wre = wre - (VreM.T @ hre - VimM.T @ him)
-        wim = wim - (VreM.T @ him + VimM.T @ hre)
-        return wre, wim, hre, him
+        # DGKS (two-pass classical Gram-Schmidt) in paired-real arithmetic
+        wre, wim = ytre.reshape(-1), ytim.reshape(-1)
+        VreM = Vre.reshape(m + 1, -1)
+        VimM = Vim.reshape(m + 1, -1)
 
-    wre, wim, h1re, h1im = cgs(wre, wim)
-    wre, wim, h2re, h2im = cgs(wre, wim)
-    hre, him = h1re + h2re, h1im + h2im
-    beta = torch.sqrt(torch.sum(wre**2) + torch.sum(wim**2))
-    Vre[k] = (wre / beta).reshape(m + 1, -1)
-    Vim[k] = (wim / beta).reshape(m + 1, -1)
-    Hre[:, k - 1] = torch.where(jblk == k, beta, hre)
-    Him[:, k - 1] = torch.where(jblk == k, torch.zeros_like(him), him)
-    return beta
+        def cgs(wre, wim):
+            hre = VreM @ wre + VimM @ wim  # Re(conj(V) @ w)
+            him = VreM @ wim - VimM @ wre  # Im(conj(V) @ w)
+            wre = wre - (VreM.T @ hre - VimM.T @ him)
+            wim = wim - (VreM.T @ him + VimM.T @ hre)
+            return wre, wim, hre, him
+
+        wre, wim, h1re, h1im = cgs(wre, wim)
+        wre, wim, h2re, h2im = cgs(wre, wim)
+        hre, him = h1re + h2re, h1im + h2im
+        beta = torch.sqrt(torch.sum(wre**2) + torch.sum(wim**2))
+        kk = k.view(1)
+        Vre.index_copy_(0, kk, (wre / beta).reshape(1, m + 1, -1))
+        Vim.index_copy_(0, kk, (wim / beta).reshape(1, m + 1, -1))
+        top = jblk == k
+        Hre.index_copy_(1, km1, torch.where(top, beta, hre)[:, None])
+        Him.index_copy_(1, km1, torch.where(top, zero, him)[:, None])
+        return beta
+
+    return step
 
 
 def _init_carry(m, v0re, v0im, dt):
@@ -313,10 +330,14 @@ def _init_carry(m, v0re, v0im, dt):
 def _scan_chunk(bank, m, nsteps, k0, carry, Cre, Cim, gre, gim, solver,
                 scaled=False, inv_theta=1.0, defl=None):
     """Advance ``nsteps`` IAR steps starting at (1-based) step ``k0``; the
-    carry is updated in place and returned."""
-    for k in range(int(k0), int(k0) + int(nsteps)):
-        _step(carry, k, bank, m, Cre, Cim, gre, gim, solver, scaled,
-              inv_theta, defl)
+    carry is updated in place and returned.  On the card the steps after
+    the first are replays of one captured graph."""
+    dt = carry[0].dtype
+    step = _step_fn(bank, m, Cre, Cim, gre, gim, solver, dt, scaled=scaled,
+                    inv_theta=inv_theta, defl=defl)
+    k = torch.full((), int(k0), dtype=torch.int64, device=carry[0].device)
+    with StepGraph(step, carry, k) as run:
+        run.advance(nsteps)
     return carry
 
 
@@ -337,6 +358,13 @@ def iar_real_scan(bank, m, Cre, Cim, gre, gim, v0re, v0im, lu, piv=None,
                        torch.as_tensor(Cim, dtype=dt, device=dev),
                        float(gre), float(gim), solver, scaled=scaled,
                        inv_theta=float(inv_theta))
+
+
+def _hessenberg(carry):
+    """The carry's Hessenberg pair as one complex128 host array."""
+    Hre, Him = carry[-2:]
+    return (Hre.cpu().numpy().astype(np.float64)
+            + 1j * Him.cpu().numpy().astype(np.float64))
 
 
 def _extract_ritz(carry, k_done, m, n, sigma, gamma):
@@ -420,7 +448,10 @@ def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
     n + p).  ``precision`` is accepted for parity with the
     JAX package and does nothing: TF32 is off (``neptpu_torch.config``), so
     float32 products already run in full float32.  Returns ``(lams, Q,
-    info)`` over the converged pairs, residual-sorted."""
+    info)`` over the converged pairs, residual-sorted; ``info``: ``t_scan``,
+    ``t_check``, ``nconv``, ``k_done``, ``errs``, ``graph`` (how the steps
+    ran, :meth:`~neptpu_torch.solvers.scan_graph.StepGraph.stats`) and
+    ``hessenberg`` (the final Hessenberg pair, complex128 on the host)."""
     del precision  # see docstring
     dt = to_torch_dtype(dt)
     solver = as_pair_solver(lu_piv)
@@ -435,53 +466,54 @@ def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
     inv_theta = 1.0 / float(theta)
     Cre_t = torch.as_tensor(np.asarray(Cre), dtype=dt, device=device)
     Cim_t = torch.as_tensor(np.asarray(Cim), dtype=dt, device=device)
-    args = (Cre_t, Cim_t, id_coeff.real, id_coeff.imag, solver)
-
-    def start():
-        return _init_carry(m, torch.as_tensor(v.real, dtype=dt, device=device),
-                           torch.as_tensor(v.imag, dtype=dt, device=device),
-                           dt)
+    step = _step_fn(bank, m, Cre_t, Cim_t, id_coeff.real, id_coeff.imag,
+                    solver, dt, scaled=scaled, inv_theta=inv_theta,
+                    defl=defl)
 
     t0 = time.perf_counter()
     t_check = 0.0
-    if check_error_every and np.isfinite(tol):
-        chunk = int(check_error_every)
-        carry = start()
-        k_done = 0
-        best = None  # keep the BEST peek: at deep Krylov degree the f32
-        # basis can degrade, and the final extraction must not lose pairs
-        # that an earlier peek had already certified
-        while k_done < m:
-            steps = min(chunk, m - k_done)
-            carry = _scan_chunk(bank, m, steps, k_done + 1, carry, *args,
-                                scaled=scaled, inv_theta=inv_theta,
-                                defl=defl)
-            k_done += steps
-            tc = time.perf_counter()
+    carry = _init_carry(m, torch.as_tensor(v.real, dtype=dt, device=device),
+                        torch.as_tensor(v.imag, dtype=dt, device=device), dt)
+    k = torch.ones((), dtype=torch.int64, device=device)
+    with StepGraph(step, carry, k) as run:
+        if check_error_every and np.isfinite(tol):
+            chunk = int(check_error_every)
+            k_done = 0
+            best = None  # keep the BEST peek: at deep Krylov degree the f32
+            # basis can degrade, and the final extraction must not lose
+            # pairs that an earlier peek had already certified
+            while k_done < m:
+                steps = min(chunk, m - k_done)
+                run.advance(steps)
+                k_done += steps
+                run.wait()  # the checks' time is the host's alone
+                tc = time.perf_counter()
+                lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma,
+                                              gamma)
+                errs = _filtered_errs(lams, Q, ests, resnorm, neigs)
+                t_check += time.perf_counter() - tc
+                ncv = int(np.sum(errs < tol))
+                top = np.sort(errs)[: int(neigs)]
+                score = (ncv,
+                         -float(np.sum(np.log10(np.maximum(top, 1e-300)))))
+                if best is None or score > best[0]:
+                    best = (score, lams, Q, errs)
+                if ncv >= neigs:
+                    break
+            _, lams, Q, errs = best
+        else:
+            run.advance(m)
+            k_done = m
             lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma, gamma)
             errs = _filtered_errs(lams, Q, ests, resnorm, neigs)
-            t_check += time.perf_counter() - tc
-            ncv = int(np.sum(errs < tol))
-            top = np.sort(errs)[: int(neigs)]
-            score = (ncv, -float(np.sum(np.log10(np.maximum(top, 1e-300)))))
-            if best is None or score > best[0]:
-                best = (score, lams, Q, errs)
-            if ncv >= neigs:
-                break
-        _, lams, Q, errs = best
-    else:
-        carry = _scan_chunk(bank, m, m, 1, start(), *args, scaled=scaled,
-                            inv_theta=inv_theta, defl=defl)
-        k_done = m
-        lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma, gamma)
-        errs = _filtered_errs(lams, Q, ests, resnorm, neigs)
     t_scan = time.perf_counter() - t0
 
     idx = np.argsort(errs)
     nconv = int(np.sum(errs < tol)) if np.isfinite(tol) else len(errs)
     take = idx[: min(neigs, nconv)]
     info = {"t_scan": t_scan, "t_check": t_check, "nconv": nconv,
-            "k_done": k_done, "errs": errs[idx]}
+            "k_done": k_done, "errs": errs[idx], "graph": run.stats(),
+            "hessenberg": _hessenberg(carry)}
     return lams[take], Q[:, take], info
 
 

@@ -26,6 +26,7 @@ from .iar_real import (DeflationOps, apply_theta, auto_theta,
                        block_assemble_lu, run_iar_real)
 
 __all__ = [
+    "term_matrices",
     "collect_spmf_terms",
     "spmf_coeff_table",
     "finite_table_prefix",
@@ -35,6 +36,13 @@ __all__ = [
     "iar_real_spmf_multishift",
     "iar_real_spmf_deflated",
 ]
+
+
+def term_matrices(bank):
+    """Host scipy-CSR mirrors of every term of a DIA, CSR, dense or mixed
+    bank (no device read where the bank keeps its construction-time host
+    mirror)."""
+    return bank.host_csr_terms()
 
 
 def collect_spmf_terms(nep):
@@ -311,8 +319,10 @@ def iar_real_spmf_deflated(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6,
     sum_i |f_i(lam)| ||A_i||_F`` on the host).  ``info``: ``t_factorize``,
     ``t_scan``, ``t_check`` (host Ritz checks, all sweeps), ``theta``,
     ``sweeps`` (converged pairs per sweep), ``nconv``, ``m_per_sweep`` and,
-    per sweep, ``t_check_sweeps``, ``k_done_sweeps`` (scan steps) and
-    ``max_abs_T`` (0 for the undeflated first sweep).  ``device=None`` is the card."""
+    per sweep, ``t_check_sweeps``, ``k_done_sweeps`` (scan steps),
+    ``max_abs_T`` (0 for the undeflated first sweep), ``graph_sweeps`` (how
+    the steps ran: :meth:`~neptpu_torch.solvers.scan_graph.StepGraph.stats`)
+    and ``hessenberg_sweeps``.  ``device=None`` is the card."""
     from ..models.deflation import normalize_schur_pair
     from ..ops.partitioned import build_spmf_shift_solver
 
@@ -362,6 +372,7 @@ def iar_real_spmf_deflated(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6,
     X = np.zeros((n, 0), dtype=complex)
     S = np.zeros((0, 0), dtype=complex)
     sweeps, t_checks, max_T, k_done = [], [], [], []
+    graphs, hessenbergs = [], []
     found = []  # (lam, recovered original eigvec) captured at convergence
     t_scan = 0.0
     for _ in range(int(restarts)):
@@ -397,6 +408,8 @@ def iar_real_spmf_deflated(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6,
         t_scan += info["t_scan"]
         t_checks.append(info["t_check"])
         k_done.append(info["k_done"])
+        graphs.append(info["graph"])
+        hessenbergs.append(info["hessenberg"])
         sweeps.append(info["nconv"])
         if info["nconv"] == 0:
             continue  # a fresh random start next sweep
@@ -447,7 +460,8 @@ def iar_real_spmf_deflated(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6,
             "t_check": float(sum(t_checks)), "theta": theta,
             "sweeps": sweeps, "nconv": int(len(D)), "m_per_sweep": m,
             "t_check_sweeps": t_checks, "max_abs_T": max_T,
-            "k_done_sweeps": k_done}
+            "k_done_sweeps": k_done, "graph_sweeps": graphs,
+            "hessenberg_sweeps": hessenbergs}
     if return_info:
         return D, Q, info
     return D, Q

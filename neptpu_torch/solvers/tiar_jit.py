@@ -7,10 +7,13 @@ The tensor-factorized basis ``Z (n, m+1)`` times the coefficient tensor
 apply of the complex operand (``lincomb_apply``: on the card the re/im pair
 kernel of the DIA SpMV, one launch), the shifted solve against one dense LU
 of M(sigma), and a DGKS pass against Z plus the (m+1)^2 tensor-level DGKS.
-The JAX package compiles the steps into one ``lax.scan``; here they are an
-eager loop writing into the preallocated carry in place.
-``check_error_every`` chunks the steps with host Ritz peeks for an early
-exit.
+A step has the JAX package's static-shape form (its ``_step_fn``): the step
+index ``k`` is a 0-dim int64 tensor on the device, read and written by index
+ops in place in the preallocated carry.  Where the JAX package
+compiles the steps into one ``lax.scan``, the port replays one captured CUDA
+graph a step on the card (:mod:`neptpu_torch.solvers.scan_graph`) and loops
+the same step eagerly on the CPU.  ``check_error_every`` chunks the steps
+with host Ritz peeks for an early exit.
 """
 from __future__ import annotations
 
@@ -19,62 +22,73 @@ import time
 import numpy as np
 import torch
 
-from ..config import to_numpy_dtype, to_torch_dtype
+from ..config import real_of, to_numpy_dtype, to_torch_dtype
 from .common import solver_device
+from .scan_graph import StepGraph
 from .spmf_real import _sync
 
 __all__ = ["tiar_scan_complex", "tiar_jitted", "tiar_jitted_spmf"]
 
 
-def _step(carry, k, bank, m, C, gamma_id, lu, piv):
-    """One complex TIAR step, ``k`` the 1-based step index; updates the
-    carry ``(Z (n, m+1), a (m+1)^3 [i=deriv, j=iter, l=Z-col], H (m+1, m))``
-    in place and returns beta."""
-    Z, a, H = carry
-    cdt, dev = Z.dtype, Z.device
+def _step_fn(bank, m, C, gamma_id, lu, piv, cdt):
+    """One complex TIAR step as ``step(carry, k)`` (the JAX package's
+    ``_step_fn``): ``k`` is the 1-based step index, a 0-dim int64 tensor on
+    the carry's device; the step updates the carry ``(Z (n, m+1), a
+    (m+1)^3 [i=deriv, j=iter, l=Z-col], H (m+1, m))`` in place and returns
+    beta.  Every shape is static and ``k`` is read on the device only."""
+    dev = C.device
     jblk = torch.arange(m + 1, device=dev)
-    inv = torch.where((jblk >= 1) & (jblk <= k),
-                      1.0 / torch.clamp(jblk, min=1).to(torch.float64),
-                      torch.zeros((), dtype=torch.float64, device=dev)).to(
-        Z.real.dtype)
+    rdt = real_of(cdt)
+    invj = 1.0 / torch.clamp(jblk, min=1).to(torch.float64)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    lo = jblk >= 1
 
-    # expand: y[:, 1+i] = (Z @ a[:, k-1, :].T)[:, i] / (i+1)
-    A = a[:, k - 1, :]
-    y = torch.roll(Z @ A.T, 1, dims=1) * inv[None, :]
+    def step(carry, k):
+        Z, a, H = carry
+        km1 = (k - 1).view(1)
+        kk = k.view(1)
+        inv = torch.where(lo & (jblk <= k), invj, zero).to(rdt)
 
-    # Mlincomb via the table + the fused bank apply of the complex operand
-    W = (C @ y.T).T  # (n, terms)
-    z = bank.lincomb_apply(W).to(cdt)
-    z = z - gamma_id * y[:, 1]
-    y0 = -torch.linalg.lu_solve(lu, piv, z[:, None])[:, 0]
+        # expand: y[:, 1+i] = (Z @ a[:, k-1, :].T)[:, i] / (i+1)
+        A = a.index_select(1, km1)[:, 0, :]
+        y = torch.roll(Z @ A.T, 1, dims=1) * inv[None, :]
 
-    # DGKS of y0 against Z
-    def cgs(w):
-        t = Z.conj().T @ w
-        return w - Z @ t, t
+        # Mlincomb via the table + the fused bank apply of the complex operand
+        W = (C @ y.T).T  # (n, terms)
+        z = bank.lincomb_apply(W).to(cdt)
+        z = z - gamma_id * y[:, 1]
+        y0 = -torch.linalg.lu_solve(lu, piv, z[:, None])[:, 0]
 
-    w, t1 = cgs(y0)
-    w, t2 = cgs(w)
-    t = t1 + t2
-    beta = torch.sqrt(torch.sum(torch.abs(w) ** 2)).to(cdt)
-    Z[:, k] = w / beta
-    t[k] = beta
+        # DGKS of y0 against Z
+        def cgs(w):
+            t = Z.conj().T @ w
+            return w - Z @ t, t
 
-    # tensor-level DGKS
-    g = torch.roll(A, 1, dims=0) * inv[:, None]
-    g[0, :] = t
+        w, t1 = cgs(y0)
+        w, t2 = cgs(w)
+        t = t1 + t2
+        beta = torch.sqrt(torch.sum(torch.abs(w) ** 2)).to(cdt)
+        Z.index_copy_(1, kk, (w / beta)[:, None])
+        top = jblk == k
+        t = torch.where(top, beta, t)
 
-    def tcgs(g):
-        h = torch.einsum("ijl,il->j", a.conj(), g)
-        return g - torch.einsum("ijl,j->il", a, h), h
+        # tensor-level DGKS
+        g = torch.roll(A, 1, dims=0) * inv[:, None]
+        g[0, :] = t
 
-    f, h1 = tcgs(g)
-    f, h2 = tcgs(f)
-    h = h1 + h2
-    beta2 = torch.sqrt(torch.sum(torch.abs(f) ** 2)).to(cdt)
-    H[:, k - 1] = torch.where(jblk == k, beta2, h)
-    a[:, k, :] = f / beta2
-    return beta2
+        def tcgs(g):
+            h = torch.einsum("ijl,il->j", a.conj(), g)
+            return g - torch.einsum("ijl,j->il", a, h), h
+
+        f, h1 = tcgs(g)
+        f, h2 = tcgs(f)
+        h = h1 + h2
+        beta2 = torch.sqrt(torch.sum(torch.abs(f) ** 2)).to(cdt)
+        H.index_copy_(1, km1, torch.where(top, beta2, h)[:, None])
+        a.index_copy_(1, kk, (f / beta2)[:, None, :])
+        return beta2
+
+    return step
 
 
 def _init(m, v0, cdt):
@@ -89,8 +103,12 @@ def _init(m, v0, cdt):
 
 
 def _chunk(bank, m, nsteps, k0, carry, C, gamma_id, lu, piv):
-    for k in range(k0, k0 + nsteps):
-        _step(carry, k, bank, m, C, gamma_id, lu, piv)
+    """Advance ``nsteps`` steps from (1-based) step ``k0``; the carry is
+    updated in place and returned."""
+    step = _step_fn(bank, m, C, gamma_id, lu, piv, carry[0].dtype)
+    k = torch.full((), int(k0), dtype=torch.int64, device=carry[0].device)
+    with StepGraph(step, carry, k) as run:
+        run.advance(nsteps)
     return carry
 
 
@@ -121,32 +139,42 @@ def _run(bank, m, C, id_coeff, v, lu_piv, cdt, *, sigma, gamma, neigs, tol,
     lu, piv = lu_piv
     lu = lu.to(cdt)
     v0 = torch.as_tensor(np.asarray(v, dtype=complex), device=device).to(cdt)
+    step = _step_fn(bank, m, C, gamma_id, lu, piv, cdt)
     t0 = time.perf_counter()
-    if check_error_every and np.isfinite(tol):
-        chunk = int(check_error_every)
-        carry = _init(m, v0, cdt)
-        k_done = 0
-        while k_done < m:
-            steps = min(chunk, m - k_done)
-            carry = _chunk(bank, m, steps, k_done + 1, carry, C, gamma_id,
-                           lu, piv)
-            k_done += steps
-            lams, Q = _extract(carry, k_done, n, sigma, gamma)
-            errs = np.array([resnorm(lams[s], Q[:, s])
-                             for s in range(len(lams))])
-            if int(np.sum(errs < tol)) >= neigs:
-                break
-    else:
-        carry = tiar_scan_complex(bank, m, C, gamma_id, v0, lu, piv)
-        k_done = m
+    t_check = 0.0
+    carry = _init(m, v0, cdt)
+    k = torch.ones((), dtype=torch.int64, device=device)
+
+    def peek(k_done):
         lams, Q = _extract(carry, k_done, n, sigma, gamma)
-        errs = np.array([resnorm(lams[s], Q[:, s]) for s in range(len(lams))])
+        return lams, Q, np.array([resnorm(lams[s], Q[:, s])
+                                  for s in range(len(lams))])
+
+    with StepGraph(step, carry, k) as run:
+        if check_error_every and np.isfinite(tol):
+            chunk = int(check_error_every)
+            k_done = 0
+            while k_done < m:
+                steps = min(chunk, m - k_done)
+                run.advance(steps)
+                k_done += steps
+                run.wait()  # the checks' time is the host's alone
+                tc = time.perf_counter()
+                lams, Q, errs = peek(k_done)
+                t_check += time.perf_counter() - tc
+                if int(np.sum(errs < tol)) >= neigs:
+                    break
+        else:
+            run.advance(m)
+            k_done = m
+            lams, Q, errs = peek(k_done)
     t_scan = time.perf_counter() - t0
     idx = np.argsort(errs)
     nconv = int(np.sum(errs < tol)) if np.isfinite(tol) else len(errs)
     take = idx[: min(neigs, nconv)]
-    info = {"t_scan": t_scan, "nconv": nconv, "k_done": k_done,
-            "errs": errs[idx]}
+    info = {"t_scan": t_scan, "t_check": t_check, "nconv": nconv,
+            "k_done": k_done, "errs": errs[idx], "graph": run.stats(),
+            "hessenberg": carry[2].cpu().numpy()}
     return lams[take], Q[:, take], info
 
 

@@ -17,9 +17,13 @@ carry can be held against it step by step:
 * ``check_error_every`` chunks the steps with host Ritz peeks for a true
   time-to-tolerance early exit.
 
-The JAX package compiles the steps into one ``lax.scan``; here they are an
-eager loop that writes IN PLACE into the preallocated carry ``(Zre, Zim, are,
-aim, Hre, Him)``.
+A step has the JAX package's static-shape form (its ``_tiar_step_fn``): the
+step index ``k`` is a 0-dim int64 tensor on the device, read and written by
+index ops IN PLACE in the preallocated carry ``(Zre, Zim, are, aim, Hre,
+Him)``.  Where the JAX package compiles the steps into one ``lax.scan``, the
+port replays one captured CUDA graph a step on the card
+(:mod:`neptpu_torch.solvers.scan_graph`) and loops the same step eagerly on
+the CPU.
 """
 from __future__ import annotations
 
@@ -31,99 +35,113 @@ import torch
 from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
 from .common import solver_device
 from ..ops.mixed import make_mixed_bank
-from .iar_real import (_dep_host_resnorm, as_pair_solver, dep_coeff_table,
-                       dep_shift_block_lu)
+from .iar_real import (_dep_host_resnorm, _hessenberg, as_pair_solver,
+                       dep_coeff_table, dep_shift_block_lu)
+from .scan_graph import StepGraph
 from .spmf_real import (_spmf_host_resnorm, _sync, collect_spmf_terms,
                         spmf_coeff_table, spmf_shift_block_lu)
 
 __all__ = ["tiar_real_scan", "run_tiar_real", "tiar_real", "tiar_real_spmf"]
 
 
-def _tiar_step(carry, k, bank, m, Cre, Cim, gre, gim, solver):
-    """One split re/im TIAR step, ``k`` the 1-based step index; updates the
-    carry in place and returns beta.
+def _tiar_step_fn(bank, m, Cre, Cim, gre, gim, solver, dt):
+    """One split re/im TIAR step as ``step(carry, k)`` (the JAX package's
+    ``_tiar_step_fn``): ``k`` is the 1-based step index, a 0-dim int64
+    tensor on the carry's device; the step updates the carry in place and
+    returns beta.  Every shape is static and ``k`` is read on the device
+    only, so one captured CUDA graph serves every ``k``.
 
     carry: (Zre, Zim (n, m+1), are, aim (m+1, m+1, m+1) [i=deriv, j=iter,
     l=Z-col], Hre, Him (m+1, m)).  Padding invariant: column j of ``a`` and
     ``Z`` is zero for j > steps done, so padded GEMMs equal growing-slice
     GEMMs."""
-    Zre, Zim, are, aim, Hre, Him = carry
-    dt, dev = Zre.dtype, Zre.device
+    dev = Cre.device
     jblk = torch.arange(m + 1, device=dev)
-    inv = torch.where((jblk >= 1) & (jblk <= k),
-                      1.0 / torch.clamp(jblk, min=1).to(torch.float64),
-                      torch.zeros((), dtype=torch.float64, device=dev)).to(dt)
+    # 1/i in float64, then the scan's dtype (as the JAX step rounds it)
+    invj = 1.0 / torch.clamp(jblk, min=1).to(torch.float64)
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    zero_dt = torch.zeros((), dtype=dt, device=dev)
+    lo = jblk >= 1
 
-    # ---- expand: y[:, 1+i] = (Z @ a[:, k-1, :].T)[:, i] / (i+1) -----------
-    Are = are[:, k - 1, :]  # (i, l)
-    Aim = aim[:, k - 1, :]
-    Ytre = Zre @ Are.T - Zim @ Aim.T  # (n, m+1), col i
-    Ytim = Zre @ Aim.T + Zim @ Are.T
-    yre = torch.roll(Ytre, 1, dims=1) * inv[None, :]  # y[:, 1:] filled
-    yim = torch.roll(Ytim, 1, dims=1) * inv[None, :]
+    def step(carry, k):
+        Zre, Zim, are, aim, Hre, Him = carry
+        km1 = (k - 1).view(1)
+        kk = k.view(1)
+        inv = torch.where(lo & (jblk <= k), invj, zero).to(dt)
 
-    # ---- Mlincomb via coefficient table + fused bank apply ----------------
-    WreT = Cre @ yre.T - Cim @ yim.T  # (terms, n)
-    WimT = Cre @ yim.T + Cim @ yre.T
-    if hasattr(bank, "lincomb_apply_split_t"):
-        zre, zim = bank.lincomb_apply_split_t(WreT, WimT)  # as held
-    else:
-        zre = bank.lincomb_apply(WreT.T)
-        zim = bank.lincomb_apply(WimT.T)
-    zre, zim = zre.to(dt), zim.to(dt)
-    zre = zre - gre * yre[:, 1] + gim * yim[:, 1]
-    zim = zim - gre * yim[:, 1] - gim * yre[:, 1]
+        # ---- expand: y[:, 1+i] = (Z @ a[:, k-1, :].T)[:, i] / (i+1) -------
+        Are = are.index_select(1, km1)[:, 0, :]  # (i, l)
+        Aim = aim.index_select(1, km1)[:, 0, :]
+        Ytre = Zre @ Are.T - Zim @ Aim.T  # (n, m+1), col i
+        Ytim = Zre @ Aim.T + Zim @ Are.T
+        yre = torch.roll(Ytre, 1, dims=1) * inv[None, :]  # y[:, 1:] filled
+        yim = torch.roll(Ytim, 1, dims=1) * inv[None, :]
 
-    # ---- shifted solve: y0 = -M(sigma)^{-1} z -----------------------------
-    xre, xim = solver.solve_pair(zre, zim)
-    y0re, y0im = -xre, -xim
+        # ---- Mlincomb via coefficient table + fused bank apply ------------
+        WreT = Cre @ yre.T - Cim @ yim.T  # (terms, n)
+        WimT = Cre @ yim.T + Cim @ yre.T
+        if hasattr(bank, "lincomb_apply_split_t"):
+            zre, zim = bank.lincomb_apply_split_t(WreT, WimT)  # as held
+        else:
+            zre = bank.lincomb_apply(WreT.T)
+            zim = bank.lincomb_apply(WimT.T)
+        zre, zim = zre.to(dt), zim.to(dt)
+        zre = zre - gre * yre[:, 1] + gim * yim[:, 1]
+        zim = zim - gre * yim[:, 1] - gim * yre[:, 1]
 
-    # ---- DGKS of y0 against Z (columns not yet filled are zero) -----------
-    def cgs(wre, wim):
-        tre = Zre.T @ wre + Zim.T @ wim  # Re(Z^H w)
-        tim = Zre.T @ wim - Zim.T @ wre  # Im(Z^H w)
-        wre = wre - (Zre @ tre - Zim @ tim)
-        wim = wim - (Zre @ tim + Zim @ tre)
-        return wre, wim, tre, tim
+        # ---- shifted solve: y0 = -M(sigma)^{-1} z -------------------------
+        xre, xim = solver.solve_pair(zre, zim)
+        y0re, y0im = -xre, -xim
 
-    wre, wim, t1re, t1im = cgs(y0re, y0im)
-    wre, wim, t2re, t2im = cgs(wre, wim)
-    tre, tim = t1re + t2re, t1im + t2im
-    beta = torch.sqrt(torch.sum(wre**2) + torch.sum(wim**2))
-    Zre[:, k] = wre / beta
-    Zim[:, k] = wim / beta
-    tre[k] = beta  # t[k] = beta (real)
+        # ---- DGKS of y0 against Z (columns not yet filled are zero) -------
+        def cgs(wre, wim):
+            tre = Zre.T @ wre + Zim.T @ wim  # Re(Z^H w)
+            tim = Zre.T @ wim - Zim.T @ wre  # Im(Z^H w)
+            wre = wre - (Zre @ tre - Zim @ tim)
+            wim = wim - (Zre @ tim + Zim @ tre)
+            return wre, wim, tre, tim
 
-    # ---- tensor-level DGKS, padded einsums --------------------------------
-    # g[1+i, l] = a[i, k-1, l]/(i+1);  g[0, l] = t[l]
-    gre_t = torch.roll(Are, 1, dims=0) * inv[:, None]
-    gim_t = torch.roll(Aim, 1, dims=0) * inv[:, None]
-    gre_t[0, :] = tre
-    gim_t[0, :] = tim
+        wre, wim, t1re, t1im = cgs(y0re, y0im)
+        wre, wim, t2re, t2im = cgs(wre, wim)
+        tre, tim = t1re + t2re, t1im + t2im
+        beta = torch.sqrt(torch.sum(wre**2) + torch.sum(wim**2))
+        Zre.index_copy_(1, kk, (wre / beta)[:, None])
+        Zim.index_copy_(1, kk, (wim / beta)[:, None])
+        top = jblk == k
+        tre = torch.where(top, beta, tre)  # t[k] = beta (real)
 
-    def tcgs(gre_t, gim_t):
-        # h_j = sum_{i,l} conj(a[i,j,l]) g[i,l]
-        hre = (torch.einsum("ijl,il->j", are, gre_t)
-               + torch.einsum("ijl,il->j", aim, gim_t))
-        him = (torch.einsum("ijl,il->j", are, gim_t)
-               - torch.einsum("ijl,il->j", aim, gre_t))
-        # f[i, l] = g[i, l] - sum_j a[i, j, l] h[j]
-        fre = gre_t - (torch.einsum("ijl,j->il", are, hre)
-                       - torch.einsum("ijl,j->il", aim, him))
-        fim = gim_t - (torch.einsum("ijl,j->il", are, him)
-                       + torch.einsum("ijl,j->il", aim, hre))
-        return fre, fim, hre, him
+        # ---- tensor-level DGKS, padded einsums ----------------------------
+        # g[1+i, l] = a[i, k-1, l]/(i+1);  g[0, l] = t[l]
+        gre_t = torch.roll(Are, 1, dims=0) * inv[:, None]
+        gim_t = torch.roll(Aim, 1, dims=0) * inv[:, None]
+        gre_t[0, :] = tre
+        gim_t[0, :] = tim
 
-    fre, fim, h1re, h1im = tcgs(gre_t, gim_t)
-    fre, fim, h2re, h2im = tcgs(fre, fim)
-    hre, him = h1re + h2re, h1im + h2im
-    beta2 = torch.sqrt(torch.sum(fre**2) + torch.sum(fim**2))
+        def tcgs(gre_t, gim_t):
+            # h_j = sum_{i,l} conj(a[i,j,l]) g[i,l]
+            hre = (torch.einsum("ijl,il->j", are, gre_t)
+                   + torch.einsum("ijl,il->j", aim, gim_t))
+            him = (torch.einsum("ijl,il->j", are, gim_t)
+                   - torch.einsum("ijl,il->j", aim, gre_t))
+            # f[i, l] = g[i, l] - sum_j a[i, j, l] h[j]
+            fre = gre_t - (torch.einsum("ijl,j->il", are, hre)
+                           - torch.einsum("ijl,j->il", aim, him))
+            fim = gim_t - (torch.einsum("ijl,j->il", are, him)
+                           + torch.einsum("ijl,j->il", aim, hre))
+            return fre, fim, hre, him
 
-    Hre[:, k - 1] = torch.where(jblk == k, beta2, hre)
-    Him[:, k - 1] = torch.where(jblk == k, torch.zeros_like(him), him)
-    are[:, k, :] = fre / beta2
-    aim[:, k, :] = fim / beta2
-    return beta2
+        fre, fim, h1re, h1im = tcgs(gre_t, gim_t)
+        fre, fim, h2re, h2im = tcgs(fre, fim)
+        hre, him = h1re + h2re, h1im + h2im
+        beta2 = torch.sqrt(torch.sum(fre**2) + torch.sum(fim**2))
+
+        Hre.index_copy_(1, km1, torch.where(top, beta2, hre)[:, None])
+        Him.index_copy_(1, km1, torch.where(top, zero_dt, him)[:, None])
+        are.index_copy_(1, kk, (fre / beta2)[:, None, :])
+        aim.index_copy_(1, kk, (fim / beta2)[:, None, :])
+        return beta2
+
+    return step
 
 
 def _tiar_init(m, v0re, v0im, dt):
@@ -143,9 +161,12 @@ def _tiar_init(m, v0re, v0im, dt):
 
 def _tiar_chunk(bank, m, nsteps, k0, carry, Cre, Cim, gre, gim, solver):
     """Advance ``nsteps`` TIAR steps starting at (1-based) step ``k0``; the
-    carry is updated in place and returned."""
-    for k in range(int(k0), int(k0) + int(nsteps)):
-        _tiar_step(carry, k, bank, m, Cre, Cim, gre, gim, solver)
+    carry is updated in place and returned.  On the card the steps after
+    the first are replays of one captured graph."""
+    step = _tiar_step_fn(bank, m, Cre, Cim, gre, gim, solver, carry[0].dtype)
+    k = torch.full((), int(k0), dtype=torch.int64, device=carry[0].device)
+    with StepGraph(step, carry, k) as run:
+        run.advance(nsteps)
     return carry
 
 
@@ -198,42 +219,47 @@ def run_tiar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
         device = bank.device
     v = np.asarray(v, dtype=complex)
     id_coeff = complex(id_coeff)
-    args = (torch.as_tensor(np.asarray(Cre), dtype=dt, device=device),
-            torch.as_tensor(np.asarray(Cim), dtype=dt, device=device),
-            id_coeff.real, id_coeff.imag, solver)
+    step = _tiar_step_fn(
+        bank, m, torch.as_tensor(np.asarray(Cre), dtype=dt, device=device),
+        torch.as_tensor(np.asarray(Cim), dtype=dt, device=device),
+        id_coeff.real, id_coeff.imag, solver, dt)
     carry = _tiar_init(m, torch.as_tensor(v.real, dtype=dt, device=device),
                        torch.as_tensor(v.imag, dtype=dt, device=device), dt)
+    k = torch.ones((), dtype=torch.int64, device=device)
 
     def all_errs(lams, Q):
         return np.array([resnorm(lams[s], Q[:, s]) for s in range(len(lams))])
 
     t0 = time.perf_counter()
     t_check = 0.0
-    if check_error_every and np.isfinite(tol):
-        chunk = int(check_error_every)
-        k_done = 0
-        while k_done < m:
-            steps = min(chunk, m - k_done)
-            carry = _tiar_chunk(bank, m, steps, k_done + 1, carry, *args)
-            k_done += steps
-            tc = time.perf_counter()
+    with StepGraph(step, carry, k) as run:
+        if check_error_every and np.isfinite(tol):
+            chunk = int(check_error_every)
+            k_done = 0
+            while k_done < m:
+                steps = min(chunk, m - k_done)
+                run.advance(steps)
+                k_done += steps
+                run.wait()  # the checks' time is the host's alone
+                tc = time.perf_counter()
+                lams, Q = _tiar_extract(carry, k_done, n, sigma, gamma)
+                errs = all_errs(lams, Q)
+                t_check += time.perf_counter() - tc
+                if int(np.sum(errs < tol)) >= neigs:
+                    break
+        else:
+            run.advance(m)
+            k_done = m
             lams, Q = _tiar_extract(carry, k_done, n, sigma, gamma)
             errs = all_errs(lams, Q)
-            t_check += time.perf_counter() - tc
-            if int(np.sum(errs < tol)) >= neigs:
-                break
-    else:
-        carry = _tiar_chunk(bank, m, m, 1, carry, *args)
-        k_done = m
-        lams, Q = _tiar_extract(carry, k_done, n, sigma, gamma)
-        errs = all_errs(lams, Q)
     t_scan = time.perf_counter() - t0
 
     idx = np.argsort(errs)
     nconv = int(np.sum(errs < tol)) if np.isfinite(tol) else len(errs)
     take = idx[: min(neigs, nconv)]
     info = {"t_scan": t_scan, "t_check": t_check, "nconv": nconv,
-            "k_done": k_done, "errs": errs[idx]}
+            "k_done": k_done, "errs": errs[idx], "graph": run.stats(),
+            "hessenberg": _hessenberg(carry)}
     return lams[take], Q[:, take], info
 
 

@@ -437,15 +437,16 @@ def test_deflated_scan_step_on_the_card(cuda):
     """The first deflated step of a scan (basis n + p, the bank at n) on the
     card makes exactly one float32 pair launch and equals the same step on
     the CPU."""
-    from neptpu_torch.solvers.iar_real import _step
+    from neptpu_torch.solvers.iar_real import _step_fn
 
     out = {}
     for device in (cuda, torch.device(CPU)):
         bank, solver, (Cre, Cim), defl, carry, m = _deflated_step_inputs(
             device, torch.float32)
         dia_kernel.DIA_SPMV.reset_counts()
-        _step(carry, 1, bank, m, Cre, Cim, 0.0, 0.0, solver, True, 1.25,
-              defl)
+        _step_fn(bank, m, Cre, Cim, 0.0, 0.0, solver, torch.float32,
+                 scaled=True, inv_theta=1.25, defl=defl)(
+            carry, torch.ones((), dtype=torch.int64, device=device))
         if device.type == "cuda":
             torch.cuda.synchronize()
             assert dia_kernel.DIA_SPMV.entry_counts == {
@@ -688,3 +689,167 @@ def test_iar_real_sharded_one_rank_nccl(cuda):
     assert len(lam) == len(lam_s) >= 4
     assert np.max(np.abs(np.sort_complex(lam) - np.sort_complex(lam_s))) \
         < 1e-10
+
+
+def _graph_and_eager(run):
+    """``run()`` as the graph path, then inside the eager comparator: both
+    results and the kernel launches each made."""
+    from neptpu_torch.solvers.scan_graph import _eager_loop
+
+    out = []
+    for eager in (False, True):
+        before = dia_kernel.DIA_SPMV.snapshot()
+        if eager:
+            with _eager_loop():
+                res = run()
+        else:
+            res = run()
+        torch.cuda.synchronize()
+        out.append((res, dia_kernel.DIA_SPMV.launches_since(before)[1]))
+    return out
+
+
+# graph replay runs the eager loop's kernels on the same data: the same
+# Hessenberg to rounding (rel 1e-6 float32, 1e-12 float64 / complex128), the
+# same steps and launches, and the same Ritz values (every one of them:
+# ``tol`` 1e300 counts each as converged, so the pairs compared do not
+# depend on a residual at the tolerance)
+@pytest.mark.cuda
+@pytest.mark.parametrize("scan", ["iar_real", "tiar_real", "iar_real_spmf",
+                                  "iar_real_spmf_f64", "deflated",
+                                  "tiar_jitted", "tiar_jitted_spmf",
+                                  "iar_jitted"])
+def test_graph_replay_equals_the_eager_loop(cuda, scan):
+    import neptpu_torch as nt
+
+    dep = nt.nep_gallery("dep_symm_double", 24, device=cuda)
+    gun = _gun_from_matrices(*small_gun_like(nx=24), device=cuda)
+    m = 30
+    every = dict(tol=1e300, neigs=m, check_error_every=10, return_info=True,
+                 device=cuda)
+    dkw = dict(every, sigma=-1.0 + 0.2j, maxit=m)
+    gkw = dict(every, sigma=SMALL_SIGMA, gamma=SMALL_GAMMA, maxit=m)
+    mats, fv = collect_spmf_terms(gun)
+    runs = {
+        "iar_real": lambda: nt.iar_real(dep, dtype=torch.float32, **dkw),
+        "tiar_real": lambda: nt.tiar_real(dep, dtype=torch.float32, **dkw),
+        "iar_real_spmf": lambda: iar_real_spmf(gun, dtype=torch.float32,
+                                               **gkw),
+        # float64: the SPIKE solver's 'lu' mode (triangular solves)
+        "iar_real_spmf_f64": lambda: iar_real_spmf(gun, dtype=torch.float64,
+                                                   **gkw),
+        "deflated": lambda: nt.iar_real_spmf_deflated(
+            gun, sigma=SMALL_SIGMA, gamma=SMALL_GAMMA, maxit=15, neigs=6,
+            tol=1e-10, restarts=3, check_error_every=10,
+            dtype=torch.float64, return_info=True, device=cuda,
+            errmeasure=backward_errmeasure(mats, fv, spmf_fun_scalars)),
+        "tiar_jitted": lambda: nt.tiar_jitted(dep, **dkw),
+        "tiar_jitted_spmf": lambda: nt.tiar_jitted_spmf(gun, **gkw),
+        "iar_jitted": lambda: nt.iar_jitted(
+            dep, sigma=-1.0 + 0.2j, maxit=m, neigs=m, tol=1e300,
+            device=cuda)}
+    (graph, n_graph), (eager, n_eager) = _graph_and_eager(runs[scan])
+    assert n_graph == n_eager and sum(n_graph.values()) > 0
+    f32 = scan in ("iar_real", "tiar_real", "iar_real_spmf")
+    tol = 1e-6 if f32 else 1e-12
+    if scan == "iar_jitted":
+        (lg, _, Vg), (le, _, Ve) = graph, eager
+        assert rel_err(Vg.cpu().numpy(), Ve.cpu().numpy()) < tol
+    elif scan == "deflated":
+        (lg, _, ig), (le, _, ie) = graph, eager
+        assert ig["sweeps"] == ie["sweeps"]
+        assert ig["k_done_sweeps"] == ie["k_done_sweeps"]
+        for a, b, ga, gb in zip(ig["hessenberg_sweeps"],
+                                ie["hessenberg_sweeps"], ig["graph_sweeps"],
+                                ie["graph_sweeps"]):
+            assert rel_err(a, b) < tol
+            assert ga["graphed"] and not gb["graphed"]
+    else:
+        (lg, _, ig), (le, _, ie) = graph, eager
+        assert ig["k_done"] == ie["k_done"] == m
+        assert ig["graph"]["graphed"] and not ie["graph"]["graphed"]
+        assert ig["graph"]["replays"] == m - 1
+        assert ig["graph"]["eager_steps"] == 1
+        assert rel_err(ig["hessenberg"], ie["hessenberg"]) < tol
+    lg, le = np.sort_complex(np.asarray(lg)), np.sort_complex(np.asarray(le))
+    assert len(lg) == len(le) > 0
+    assert np.max(np.abs(lg - le) / np.abs(le)) < (1e-5 if f32 else 1e-10)
+
+
+@pytest.mark.cuda
+def test_launch_counters_count_replays(cuda):
+    """A graphed ``iar_real`` on a DIA bank: one float64 pair launch a
+    step in the counts - the warm-up step's own, then the captured launch
+    once per replay (the capture itself counts none)."""
+    import neptpu_torch as nt
+
+    dep = nt.nep_gallery("dep_symm_double", 24, device=cuda)
+    dia_kernel.DIA_SPMV.reset_counts()
+    _, _, info = nt.iar_real(dep, sigma=-1.0, maxit=25, neigs=25,
+                             tol=np.inf, dtype=torch.float64,
+                             errmeasure=lambda lam, q: 0.0,
+                             return_info=True, device=cuda)
+    assert info["k_done"] == 25 and info["graph"]["replays"] == 24
+    assert dia_kernel.DIA_SPMV.entry_counts == {
+        **{k: 0 for k in dia_kernel.DIA_SPMV.entry_counts},
+        "dia_lincomb_pair_f64": 25}
+    assert info["graph"]["capture_s"] > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch,n,dtype", [((), 64, torch.complex128),
+                                           ((), 3000, torch.float32),
+                                           ((16,), 100, torch.float64),
+                                           ((16,), 1245, torch.float64)])
+def test_lu_solve_under_capture_equals_the_eager_solve(cuda, batch, n,
+                                                       dtype):
+    """``torch.linalg.lu_solve``, the scans' shifted solves, captured into a
+    CUDA graph and replayed equals the eager solve at each of its paths:
+    cuSOLVER's getrs (n = 64), the triangular solves (n = 3000), a batch
+    (16 x 100) and a batch above 512 rows (16 x 1245, the SPIKE blocks of
+    gun_like in float64, where PyTorch takes MAGMA's batched trsm)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    A = torch.randn(batch + (n, n), dtype=dtype, device=cuda, generator=g)
+    A = A + n * torch.eye(n, dtype=dtype, device=cuda)
+    B = torch.randn(batch + (n, 1), dtype=dtype, device=cuda, generator=g)
+    lu, piv = torch.linalg.lu_factor(A)
+    ref = torch.linalg.lu_solve(lu, piv, B)
+    s = torch.cuda.Stream()
+    s.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(s):
+        torch.linalg.lu_solve(lu, piv, B)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(s)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=s):
+        X = torch.linalg.lu_solve(lu, piv, B)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(X, ref)
+
+
+@pytest.mark.cuda
+def test_a_step_that_reads_the_host_fails_to_capture_and_raises(cuda):
+    """A step that reads its index on the host (``.item()``) runs its
+    eager warm-up step, then its capture raises: the runner keeps no graph,
+    runs no further step and leaves the launch counts as they were."""
+    from neptpu_torch.solvers.scan_graph import StepGraph
+
+    bank = DiaTermBank.from_matrices(_mats([-1, 0, 1], 500, 2),
+                                     dtype=torch.float32, device=cuda)
+    W = torch.ones((2, 500), dtype=torch.float32, device=cuda)
+    out = torch.zeros(500, dtype=torch.float32, device=cuda)
+
+    def step(carry, k):
+        yre, _ = bank.lincomb_apply_pair_t(W * float(k.item()), W)
+        carry[0].add_(yre)
+
+    k = torch.ones((), dtype=torch.int64, device=cuda)
+    dia_kernel.DIA_SPMV.reset_counts()
+    run = StepGraph(step, (out,), k)
+    with pytest.raises(RuntimeError):
+        run.advance(3)
+    torch.cuda.synchronize()
+    assert run.graph is None and run.replays == 0 and run.eager_steps == 1
+    assert dia_kernel.DIA_SPMV.counts["dia_lincomb_pair"] == 1
+    assert int(k) == 2
+    run.close()

@@ -114,9 +114,10 @@ def test_deflated_step_matches_jax_step_fn(k):
     jdefl = jiar_real.DeflationOps.build(X, S, SIGMA, gamma * theta, m,
                                          jnp.float64)
     carry = _carry_from(Vre, Vim, Hre, Him)
-    beta = tiar_real._step(
-        carry, k, tbank, m, torch.from_numpy(Cre), torch.from_numpy(Cim),
-        0.0, 0.0, tiar_real.DenseBlockLU(*lu_t), True, 1.0 / theta, tdefl)
+    beta = tiar_real._step_fn(
+        tbank, m, torch.from_numpy(Cre), torch.from_numpy(Cim), 0.0, 0.0,
+        tiar_real.DenseBlockLU(*lu_t), torch.float64, scaled=True,
+        inv_theta=1.0 / theta, defl=tdefl)(carry, torch.tensor(k))
     step = jiar_real._step_fn(
         jbank, m, jnp.asarray(Cre), jnp.asarray(Cim), 0.0, 0.0,
         jiar_real.DenseBlockLU(*lu_j), jnp.float64, scaled=True,
