@@ -115,7 +115,8 @@ Phases, a few informative lines each (any failure exits non-zero):
    backward error 1e-9 on the pinned oracle, one float64 pair launch a
    step) and ``iar_jitted``/``tiar_jitted`` on the float64 delay problem
    (6 pairs each at backward error <= 1e-10, within rel 1e-6 of float64
-   ``iar_real``); within 90 s;
+   ``iar_real``) and ``iar_jitted`` on a deflated ``pep0`` (captured, its
+   eigenvalue within rel 1e-8 of the CPU's); within 90 s;
 8. gallery: every gallery problem this slice ports built on the card, the
    registry identity Mlincomb = Mder v, and the pinned oracles
    (``real_quadratic``, ``orr_sommerfeld``, the mathieu ``periodicdde``,
@@ -134,9 +135,13 @@ Phases, a few informative lines each (any failure exits non-zero):
    through the host, compute on the card): the three scans with the same
    gates and ``sharded_dia_lincomb`` on the SpMV headline bank against the
    single-card apply (rel 1e-6).  Each scan launches one float64 B1 pair a
-   step on each rank's window and nothing else; the windows are the shapes
-   the kernel checks ran at; within 180 s.  One card gives correctness,
-   not scaling.
+   step on each rank's block (the halo exchange overlapped, the boundary
+   corrections after it) and nothing else; the blocks are the shapes the
+   kernel checks ran at.  At one rank each scan's steps replay one captured
+   CUDA graph, in turns with the eager comparator (the same launches and
+   Hessenberg to rel 1e-12), and a probe captures and replays NCCL
+   collectives; the four host-staged ranks run every step eagerly and say
+   so; within 180 s.  One card gives correctness, not scaling.
 
 10. scan-graph: every scan above steps through one captured CUDA graph a
    scan (the step's static-shape form: the step index a device tensor, the
@@ -571,14 +576,14 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
         ("wep f64", torch.float64, wm[1], wm[2], wm[0], 1e-12, True),
     ] + [(f"{key} f64", bank.data.to(torch.float64), bank.offsets, None,
           None, 1e-12, True) for key, bank in (extra or {}).items()]
-    # [sharded]: each rank's window of the bank (its block zero-padded by
-    # the two halos), at one rank and at four; the scans' float64 pair and
-    # the SpMV headline's float32 single apply
-    shapes += [(window_row(key, ranks), torch.float32 if key == "headline"
-                else torch.float64, offs, n_ext, m,
+    # [sharded]: the bulk of each rank's apply, B1 on the rank's block of
+    # the bank, at one rank and at four; the scans' float64 pair and the
+    # SpMV headline's float32 single apply
+    shapes += [(block_row(key, ranks), torch.float32 if key == "headline"
+                else torch.float64, offs, blk, m,
                 1e-5 if key == "headline" else 1e-12, key != "headline")
-               for (key, ranks), (m, offs, n_ext)
-               in sharded_windows(gun_bank).items()
+               for (key, ranks), (m, offs, blk)
+               in sharded_blocks(gun_bank).items()
                if (key, ranks) in SHARDED["runs"]]
     # the launch floor: an empty kernel through the same ctypes route, as
     # the host launches it and under graph replay
@@ -2500,6 +2505,33 @@ def phase_wep_native(torch, dia_kernel, cfg=WEP_NATIVE):
     return launched
 
 
+def deflated_iar_jitted(device):
+    """``iar_jitted`` (sigma 0, maxit 30, one pair) on ``pep0`` (n = 200)
+    deflated by the pair the same call finds first: the eigenvalue, the
+    deflated one, and how each scan's steps ran (``StepGraph.stats()``)."""
+    from neptpu_torch import deflate_eigpair, iar_jitted, nep_gallery
+    from neptpu_torch.solvers import iar_jit, scan_graph
+
+    made = []
+
+    class Recorded(scan_graph.StepGraph):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(self)
+
+    iar_jit.StepGraph = Recorded
+    try:
+        nep = nep_gallery("pep0", device=device)
+        kw = dict(sigma=0.0, neigs=1, maxit=30, device=device)
+        l0, Q0, _ = iar_jitted(nep, **kw)
+        l1, _, _ = iar_jitted(deflate_eigpair(nep, complex(l0[0]), Q0[:, 0]),
+                              **kw)
+    finally:
+        iar_jit.StepGraph = scan_graph.StepGraph
+    return {"lam": complex(l1[0]), "deflated": complex(l0[0]),
+            "graph": [run.stats() for run in made]}
+
+
 def phase_complex_scan(torch, dia_kernel, gun, dep_nep, found,
                        cfg=COMPLEX_SCAN):
     """The complex-dtype scans on the card, complex128, each through its
@@ -2514,7 +2546,11 @@ def phase_complex_scan(torch, dia_kernel, gun, dep_nep, found,
       sigma = -1, maxit 60, neigs 6, errmeasure the delay problem's backward
       error at tol 1e-10 — gates: 6 pairs each, backward error <= 1e-10,
       rel gap <= 1e-6 to float64 ``iar_real``'s eigenvalues (modulo
-      conjugation), one float64 pair launch a step.
+      conjugation), one float64 pair launch a step;
+    * ``iar_jitted`` on ``pep0`` (n = 200) deflated by its first pair, a
+      problem whose Mlincomb only calls its inner SPMF's - gates: both
+      scans replayed (29 replays each) and the eigenvalue within rel 1e-8
+      of the same run on the CPU.
 
     The phase within ``cfg["budget"]`` seconds.  Returns the launch counts
     by path."""
@@ -2603,6 +2639,22 @@ def phase_complex_scan(torch, dia_kernel, gun, dep_nep, found,
             check(pair64 == cfg["maxit"],
                   f"complex-scan iar_jitted: {pair64} pair launches for "
                   f"{cfg['maxit']} steps")
+    # a problem whose Mlincomb only calls another's: iar_jitted on a
+    # deflated PEP, captured on the card, against the same run on the CPU
+    card, t_card = _timed(torch, lambda: deflated_iar_jitted(DEVICE))
+    host = deflated_iar_jitted("cpu")
+    gap = abs(card["lam"] - host["lam"]) / abs(host["lam"])
+    conj = abs(card["lam"] - np.conj(card["deflated"])) / abs(card["lam"])
+    print(f"[complex-scan] iar_jitted on pep0 (n=200) deflated by "
+          f"{card['deflated']:.8f}: {card['lam']:.10f} in {t_card:.3f} s, "
+          f"rel gap to the CPU run's {gap:.3e} (gate 1e-8), to the "
+          f"deflated value's conjugate {conj:.3e}; steps on the card "
+          f"{card['graph']}", flush=True)
+    check(gap <= 1e-8 and len(card["graph"]) == 2
+          and all(st["graphed"] and st["replays"] == 29
+                  for st in card["graph"]),
+          f"complex-scan deflated iar_jitted: gap {gap:.3e}, steps "
+          f"{card['graph']}")
     t_phase = time.perf_counter() - t_phase
     print(f"[complex-scan] phase {t_phase:.3f} s (budget {cfg['budget']:g} "
           "s)", flush=True)
@@ -2774,19 +2826,32 @@ SHARDED = dict(world=4, maxit=60, wep=dict(sigma=-3 - 3.5j, maxit=36,
                need=10, budget=180.0,
                # (problem, ranks) run: (a) one rank, (b) four on the card
                runs=(("dep", 1), ("gun_like", 1), ("wep", 1), ("dep", 4),
-                     ("gun_like", 4), ("wep", 4), ("headline", 4)))
+                     ("gun_like", 4), ("wep", 4), ("headline", 4)),
+               # (a): the runs in turns, each form with the scans it runs,
+               # the first the main path's (wep's runs are ~7 s each of host
+               # bank build and factorization: two turns); the Hessenberg
+               # gate between the forms
+               turns=(("graph", ("dep", "gun_like", "wep")),
+                      ("eager", ("dep", "gun_like", "wep")),
+                      ("eager", ("dep", "gun_like")),
+                      ("graph", ("dep", "gun_like"))), h_tol=1e-12)
+# (b)'s per-rank t_scan at four host-staged ranks before the halo overlap
+# and the static-shape step (run S1, NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's
+SHARDED_S1_T_SCAN = {"dep": 1.78, "gun_like": 2.14, "wep": 1.37}
 
 
-def window_row(key, ranks):
-    """The kernel-check row of a [sharded] window."""
-    return (f"{key} window{ranks} "
+def block_row(key, ranks):
+    """The kernel-check row of a [sharded] rank's block."""
+    return (f"{key} block{ranks} "
             f"{'f32' if key == 'headline' else 'f64'}")
 
 
-def sharded_windows(gun_bank):
-    """The windows ``(m, ndiag, blk + halo_lo + halo_hi)`` kernel B1 is
-    launched on in [sharded], by key and rank count: each rank's block of
-    the bank zero-padded by its two halos."""
+def sharded_blocks(gun_bank):
+    """The blocks ``(m, offsets, blk)`` kernel B1 is launched on in
+    [sharded], by key and rank count: each rank's own rows of the bank (the
+    bulk of its apply; the boundary corrections from the neighbours' strips
+    are plain torch ops)."""
     shapes = {"dep": dep_bank_shape(DEP["nside"]),
               "gun_like": (gun_bank.nterms, gun_bank.offsets, gun_bank.n),
               "wep": wep_bank_shape(WEP)}
@@ -2796,8 +2861,7 @@ def sharded_windows(gun_bank):
     out = {}
     for key, (m, offs, n) in shapes.items():
         for ranks in (1, SHARDED["world"]):
-            halo = max(offs) - min(offs)
-            out[key, ranks] = (m, offs, -(-n // ranks) + halo)
+            out[key, ranks] = (m, offs, -(-n // ranks))
     return out
 
 
@@ -2812,12 +2876,17 @@ def _sharded_problems(keys):
     return {k: make[k]() for k in keys}
 
 
-def _sharded_scans(torch, dia_kernel, mesh, neps, keys):
+def _sharded_scans(torch, dia_kernel, mesh, neps, keys, eager=False):
     """The sharded scans of ``keys`` on ``mesh`` (every rank calls this
     alike): per run the eigenvalues, Ritz vectors, info, launches by entry
-    point (counts set to 0 just before), peak device memory and wall."""
+    point (counts set to 0 just before), peak device memory and wall.
+    ``eager``: inside the eager comparator (``_eager_loop``), where a mesh
+    that would capture the step runs it eagerly instead."""
+    import contextlib
+
     from neptpu_torch.parallel.mixed_sharded import iar_real_spmf_sharded
     from neptpu_torch.solvers.iar_sharded import iar_real_sharded
+    from neptpu_torch.solvers.scan_graph import _eager_loop
 
     m = SHARDED["maxit"]
     runs = {
@@ -2836,7 +2905,8 @@ def _sharded_scans(torch, dia_kernel, mesh, neps, keys):
         torch.cuda.reset_peak_memory_stats()
         dia_kernel.DIA_SPMV.reset_counts()
         t0 = time.perf_counter()
-        lams, Q, info = runs[key]()
+        with _eager_loop() if eager else contextlib.nullcontext():
+            lams, Q, info = runs[key]()
         torch.cuda.synchronize()
         out[key] = {"lams": np.asarray(lams), "Q": Q, "info": info,
                     "entry": dict(dia_kernel.DIA_SPMV.entry_counts),
@@ -2876,7 +2946,7 @@ def _headline_sharded(torch, dia_kernel, mesh):
     entry = dict(dia_kernel.DIA_SPMV.entry_counts)
     return {"y": unshard_vector(y_d, n, mesh).cpu().numpy(), "entry": entry,
             "wall": wall, "peak": torch.cuda.max_memory_allocated(),
-            "info": {"window": tuple(sb.window.data.shape)}}
+            "info": {"bulk": tuple(sb.data.shape)}}
 
 
 def _sharded_rank(rank, world, init_file, out_dir, keys):
@@ -2907,6 +2977,124 @@ def _sharded_rank(rank, world, init_file, out_dir, keys):
         dist.destroy_process_group()
 
 
+def _graph_against_eager(key, runs):
+    """(a)'s ``(form, run)`` of one sharded scan in the order they ran: the
+    graph runs (one eager warm-up step, then one replay a step) against the
+    eager comparator's.  Prints replays, eager steps, capture seconds, a
+    step's time and the B1 launches of each form; gates: m - 1 replays a
+    graph run, no graph in an eager one, equal launches, the Hessenberg
+    within ``SHARDED["h_tol"]``."""
+    forms, runs = [f for f, _ in runs], [r for _, r in runs]
+    steps = runs[0]["info"].get("steps", SHARDED["maxit"])
+    ref = next(r for f, r in zip(forms, runs) if f == "eager")
+    H0 = ref["info"]["hessenberg"]
+    gaps = [float(np.linalg.norm(r["info"]["hessenberg"] - H0)
+                  / np.linalg.norm(H0)) for r in runs]
+    launched = [{k: v for k, v in r["entry"].items() if v} for r in runs]
+
+    def step_ms(r):  # the warm-up step included, the capture not
+        info = r["info"]
+        return (info["t_scan"] - info["graph"]["capture_s"]) / steps * 1e3
+
+    for form in ("graph", "eager"):
+        rs = [r for f, r in zip(forms, runs) if f == form]
+        stats = [r["info"]["graph"] for r in rs]
+        print(f"[sharded] (a) 1 rank {key} {form}: "
+              f"{[st['replays'] for st in stats]} replays, "
+              f"{[st['eager_steps'] for st in stats]} eager steps, capture "
+              + ", ".join(f"{st['capture_s']:.4f}" for st in stats)
+              + " s, " + ", ".join(f"{step_ms(r):.3f}" for r in rs)
+              + f" ms a step over {steps} steps; B1 launches "
+              f"{launched[forms.index(form)]}", flush=True)
+    print(f"[sharded] (a) 1 rank {key}: Hessenberg rel gap to the eager "
+          f"comparator {max(gaps):.3e} (gate {SHARDED['h_tol']:g}) over "
+          f"{len(runs)} runs, in turns {' '.join(forms)}", flush=True)
+    for form, r, n in zip(forms, runs, launched):
+        st = r["info"]["graph"]
+        if form == "graph":
+            check(st["graphed"] and st["eager_steps"] == 1
+                  and st["replays"] == steps - 1,
+                  f"sharded (a) {key}: the graph run's steps ran as {st}")
+        else:
+            check(not st["graphed"] and st["why"] == "eager comparator"
+                  and st["eager_steps"] == steps,
+                  f"sharded (a) {key}: the eager run's steps ran as {st}")
+        check(n == launched[0], f"sharded (a) {key}: {form} launched {n}, "
+                                f"the first run {launched[0]}")
+    check(max(gaps) <= SHARDED["h_tol"],
+          f"sharded (a) {key}: Hessenberg rel gap {max(gaps):.3e}")
+
+
+def _nccl_capture_probe(torch, dist):
+    """NCCL collectives held in a captured CUDA graph, at this process's
+    one rank: an ``all_reduce`` and an ``all_gather_into_tensor`` of a
+    device tensor made in the graph, warmed up on the capture's side stream,
+    captured once and replayed three times on new inputs; every replay's
+    results exact.  A ``batch_isend_irecv`` to this rank itself is tried
+    eagerly first and captured too where the build takes it; where it does
+    not, the reason is printed."""
+    world = dist.get_world_size()
+    x = torch.zeros(4096, dtype=torch.float64, device=DEVICE)
+    side = torch.cuda.Stream()
+
+    def collectives():
+        y = x * 2.0
+        dist.all_reduce(y)
+        g = torch.empty(world * x.numel(), dtype=x.dtype, device=x.device)
+        dist.all_gather_into_tensor(g, y)
+        return y, g
+
+    def p2p():
+        r = torch.empty_like(x)
+        for work in dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, x * 3.0, dist.get_rank()),
+                 dist.P2POp(dist.irecv, r, dist.get_rank())]):
+            work.wait()
+        return r
+
+    p2p_why = None
+    try:
+        x.fill_(1.0)
+        ok = torch.equal(p2p(), x * 3.0)
+        torch.cuda.synchronize()
+        if not ok:
+            p2p_why = "a send to this rank itself came back different"
+    except (RuntimeError, ValueError) as e:
+        p2p_why = f"{type(e).__name__}: {e}"
+    bodies = [collectives] + ([p2p] if p2p_why is None else [])
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up: communicators and buffers
+        for body in bodies:
+            body()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        outs = [body() for body in bodies]
+    capture = time.perf_counter() - t0
+    exact = []
+    for i in range(3):
+        x.copy_(torch.arange(x.numel(), dtype=x.dtype, device=DEVICE) + i)
+        graph.replay()
+        torch.cuda.synchronize()
+        y, g = outs[0]
+        ok = (torch.equal(y, x * 2.0 * world)
+              and all(torch.equal(part, y) for part in g.view(world, -1)))
+        if len(outs) > 1:
+            ok = ok and torch.equal(outs[1], x * 3.0)
+        exact.append(ok)
+    graph.reset()
+    print(f"[sharded] (a) NCCL capture probe, world {world}: all_reduce + "
+          f"all_gather_into_tensor"
+          + (" + batch_isend_irecv" if p2p_why is None else "")
+          + f" captured in {capture:.4f} s, 3 replays exact: {exact}; "
+          + ("batch_isend_irecv captured too" if p2p_why is None else
+             f"batch_isend_irecv not captured: the build refuses it at one "
+             f"rank ({p2p_why})"), flush=True)
+    check(all(exact), f"NCCL capture probe: replays exact {exact}")
+
+
 def phase_sharded(torch, dia_kernel, dep_nep, pairs64, beyn_serial,
                   headline_y, gun_bank):
     """[sharded]: the sharded layer through its entry points.
@@ -2927,15 +3115,27 @@ def phase_sharded(torch, dia_kernel, dep_nep, pairs64, beyn_serial,
     < 1e-8; Beyn the 6 pinned values in the ellipse within rel 1e-8 of the
     serial run.
 
+    Each scan's steps are one captured CUDA graph, replayed (the
+    static-shape sharded step; at this one rank its collectives return at
+    once, so the graph holds none); each runs in
+    turns through the graph and as the eager comparator (``_eager_loop``):
+    the graph runs replay m - 1 times after one warm-up step, both forms
+    launch the same kernels, meet the gates above and give the same
+    Hessenberg to rel 1e-12.  Then a probe captures NCCL's ``all_reduce``
+    and ``all_gather_into_tensor`` (and ``batch_isend_irecv`` where the
+    build takes one at one rank) and replays them exactly.
+
     (b) FOUR ranks on the one card (spawned processes, ``backend="gloo"``
     with ``device="cuda"``: every collective copies its tensor to the host
     and back, compute stays on the card): the three scans of (a) with the
-    same gates and ``sharded_dia_lincomb`` on the SpMV headline bank
-    against the single-card apply (rel 1e-6).
+    same gates, every step eager (the host-staged mesh's up-front decision,
+    printed by every rank), and ``sharded_dia_lincomb`` on the SpMV headline
+    bank against the single-card apply (rel 1e-6).
 
-    Every sharded scan launches one float64 B1 pair kernel per step on each
-    rank's window and no single kernel.  Within SHARDED["budget"] seconds.
-    Returns the launches by path."""
+    Every sharded apply is the halo exchange started, one B1 launch on the
+    rank's block, then the boundary corrections from the strips: each scan
+    launches one float64 B1 pair kernel per step and no single kernel.
+    Within SHARDED["budget"] seconds.  Returns the launches by path."""
     import tempfile
 
     import torch.distributed as dist
@@ -2948,7 +3148,7 @@ def phase_sharded(torch, dia_kernel, dep_nep, pairs64, beyn_serial,
 
     t_phase = time.perf_counter()
     world, need, maxit = SHARDED["world"], SHARDED["need"], SHARDED["maxit"]
-    windows = sharded_windows(gun_bank)
+    blocks = sharded_blocks(gun_bank)
     paths = {}
     neps = _sharded_problems(("gun_like", "wep"))
     neps["dep"] = dep_nep
@@ -2978,26 +3178,36 @@ def phase_sharded(torch, dia_kernel, dep_nep, pairs64, beyn_serial,
         info = run["info"]
         launched = {k: v for k, v in run["entry"].items() if v}
         steps = info.get("steps", maxit)
-        print(f"[sharded] {tag} {key}: window (m, ndiag, n_ext) "
-              f"{info['window']} SPIKE block {info.get('spike_block')}"
+        graph = info.get("graph")
+        how = "" if graph is None else (
+            f" graphed {str(graph['graphed']).lower()}"
+            f"{'' if graph['why'] is None else ' (' + graph['why'] + ')'}, "
+            f"{graph['replays']} replays + {graph['eager_steps']} eager "
+            f"steps, capture {graph['capture_s']:.4f} s;")
+        print(f"[sharded] {tag} {key}:{how} B1 bulk (m, ndiag, blk) "
+              f"{info['bulk']} SPIKE block {info.get('spike_block')}"
               f" reduced {info.get('reduced')} t_factorize "
               f"{info.get('t_factorize', 0.0):.3f} s t_scan "
               f"{info.get('t_scan', 0.0):.3f} s wall {run['wall']:.3f} s "
               f"launches {launched} peak_device_mem "
               f"{run['peak'] / 2**20:.1f} MiB", flush=True)
-        m, offs, n_ext = windows[key, ranks]
-        check(info["window"] == (m, len(offs), n_ext),
-              f"sharded {tag} {key}: window {info['window']}, the kernel "
-              f"checks ran at {(m, len(offs), n_ext)}")
+        m, offs, blk = blocks[key, ranks]
+        check(info["bulk"] == (m, len(offs), blk),
+              f"sharded {tag} {key}: B1 bulk {info['bulk']}, the kernel "
+              f"checks ran at {(m, len(offs), blk)}")
         if key == "headline":
             check(run["entry"]["dia_lincomb_f32"] == 1
                   and sum(run["entry"].values()) == 1,
                   f"sharded {tag} headline: launches {launched}")
-        else:
-            check(run["entry"]["dia_lincomb_pair_f64"] == steps
-                  and sum(run["entry"].values()) == steps,
-                  f"sharded {tag} {key}: {steps} steps launched {launched} "
-                  "(need one float64 pair launch a step and nothing else)")
+            return
+        check(run["entry"]["dia_lincomb_pair_f64"] == steps
+              and sum(run["entry"].values()) == steps,
+              f"sharded {tag} {key}: {steps} steps launched {launched} "
+              "(need one float64 pair launch a step and nothing else)")
+        if ranks > 1:  # host-staged: the up-front eager decision
+            check(not graph["graphed"] and graph["why"] == "host-staged"
+                  and graph["eager_steps"] == steps,
+                  f"sharded {tag} {key}: host-staged steps ran as {graph}")
 
     def gate_dep(tag, run):
         lams, Q = run["lams"], run["Q"]
@@ -3065,13 +3275,18 @@ def phase_sharded(torch, dia_kernel, dep_nep, pairs64, beyn_serial,
               f"{dist.get_world_size()}", flush=True)
         check(mesh.backend == "nccl" and not mesh.host_staged,
               f"(a) runs over {mesh}")
-        runs = _sharded_scans(torch, dia_kernel, mesh, neps,
-                              [k for k, r in SHARDED["runs"] if r == 1])
-        for key, run in runs.items():
-            report("(a) 1 rank", key, run, 1)
-            paths[f"sharded {key} r1"] = run["entry"]
-            gates[key]("(a) 1 rank", run)
-        del runs
+        turns = [(form, _sharded_scans(torch, dia_kernel, mesh, neps, keys,
+                                       eager=form == "eager"))
+                 for form, keys in SHARDED["turns"]]
+        for key in [k for k, r in SHARDED["runs"] if r == 1]:
+            runs = [(form, out[key]) for form, out in turns if key in out]
+            for form, run in runs:
+                report(f"(a) 1 rank {form}", key, run, 1)
+                gates[key](f"(a) 1 rank {form}", run)
+            paths[f"sharded {key} r1"] = runs[0][1]["entry"]
+            _graph_against_eager(key, runs)
+        del turns, runs
+        _nccl_capture_probe(torch, dist)
         # node-sharded quadrature on [rational]'s ellipse
         cfg = RATIONAL
         torch.cuda.reset_peak_memory_stats()
@@ -3116,6 +3331,11 @@ def phase_sharded(torch, dia_kernel, dep_nep, pairs64, beyn_serial,
     for key in keys + ("headline",):
         for r, out in enumerate(ranks):
             report(f"{tag} rank {r}", key, out[key], world)
+            if key != "headline":
+                print(f"[sharded] {tag} rank {r} {key}: t_scan "
+                      f"{out[key]['info']['t_scan']:.3f} s with the halo "
+                      f"overlap, eager (host-staged); S1 (before them) "
+                      f"{SHARDED_S1_T_SCAN[key]:.2f} s", flush=True)
             if key != "headline":
                 check(np.array_equal(out[key]["lams"], ranks[0][key]["lams"]),
                       f"sharded {tag} {key}: rank {r}'s eigenvalues differ")
@@ -3314,12 +3534,12 @@ def main():
         gal = [row for row in gal if sum(launches(row[2], row[3]).values())]
         check(len(gal) > 0, f"the {key} bank was launched on no path")
         table += gal
-    # [sharded]: B1 on each rank's window, at one rank and at four
+    # [sharded]: B1 on each rank's block, at one rank and at four
     for key, ranks in SHARDED["runs"]:
         single = key == "headline"
         entry = "dia_lincomb_f32" if single else "dia_lincomb_pair_f64"
-        table.append((f"{entry}@{key}_window{ranks}",
-                      window_row(key, ranks) + ("" if single else " pair"),
+        table.append((f"{entry}@{key}_block{ranks}",
+                      block_row(key, ranks) + ("" if single else " pair"),
                       [entry], (f"sharded {key} r{ranks}",)))
     kernels = []
     for name, key, entries, on in table:

@@ -194,7 +194,10 @@ def _sqrt_pos_imag_vec(a):
 def sqrt_derivative_rows(b, c, d, x, a=1.0):
     """:func:`sqrt_derivative` for every row of ``b``, ``c`` at once:
     ``(len(b), d + 1)`` derivatives of ``sqrt(a z^2 + b z + c)`` at
-    ``z = x``, the Gegenbauer recurrence run over all rows together."""
+    ``z = x``, the Gegenbauer recurrence run over all rows together.  The
+    scalar :func:`sqrt_derivative` runs the same recurrence on one row
+    (the per-term form the coefficient table calls); the two must stay
+    equal (``tests/test_torch_waveguide.py`` holds them so)."""
     if d < 0:
         raise ValueError(f"Cannot take negative derivative. d = {d}")
     aa = a
@@ -223,8 +226,27 @@ def sqrt_derivative_rows(b, c, d, x, a=1.0):
 
 def sqrt_derivative(a, b, c, d=0, x=0.0):
     """All d derivatives of sqrt(a z^2 + b z + c) at z = x via the Gegenbauer
-    recurrence (Jarlebring App. C)."""
-    return sqrt_derivative_rows([b], [c], d, x, a=a)[0]
+    recurrence (Jarlebring App. C), in scalar arithmetic: each boundary term
+    of the SPMF form calls it for its derivative table, where a recurrence
+    over length-1 arrays costs several times more
+    (:func:`sqrt_derivative_rows` runs it over many rows at once)."""
+    if d < 0:
+        raise ValueError(f"Cannot take negative derivative. d = {d}")
+    bb = b + 2 * a * x
+    cc = c + a * x**2 + b * x
+    der = np.zeros(d + 1, dtype=complex)
+    yi = der[0] = sqrt_pos_imag(cc)
+    if d == 0:
+        return der
+    yip1 = der[1] = bb / (2 * yi)
+    fact = 1.0
+    for i in range(2, d + 1):
+        m = i - 2
+        yi, yip1 = yip1, -(2 * a * (m - 1) * yi + bb * (1 + 2 * m) * yip1) / (
+            2 * cc * (2 + m))
+        fact *= i
+        der[i] = yip1 * fact
+    return der
 
 
 # -- SPMF format ------------------------------------------------------------

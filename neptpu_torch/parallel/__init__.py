@@ -3,11 +3,13 @@ SPIKE banded solves, the row-sharded CSR bank and node-sharded quadrature,
 SPMD over ``torch.distributed``.
 
 * ``mesh``  — the ``(rows, nodes)`` :class:`Mesh` over a ``DeviceMesh`` and
-  its collectives (``psum``, ``all_gather``, ``neighbour_exchange``);
+  its collectives (``psum``, ``all_gather``, ``neighbour_exchange`` and its
+  started form ``neighbour_exchange_start``);
   ``initialize_distributed`` wires a group from the torchrun variables;
 * ``halo``  — row-partitioned DIA term banks with neighbour halo exchange:
   operand and vectors sharded, each rank's apply one kernel-B1 launch on its
-  window (``ShardedDiaBank``, ``sharded_dia_lincomb``);
+  block while the strips travel, then the boundary corrections
+  (``ShardedDiaBank``, ``sharded_dia_lincomb``);
 * ``spike`` — the distributed banded direct solve (SPIKE);
 * ``spmv``  — the row-sharded CSR bank (replicated operand) and the psum
   Gram reduction;

@@ -6,22 +6,28 @@ every length-n object a sharded solver touches lives as this rank's
 ``(blk, ...)`` block.  A banded operator with offsets in
 ``[-halo_lo, +halo_hi]`` needs the ``halo_hi`` rows after and the ``halo_lo``
 rows before its block; those strips come from the two chain neighbours
-(``Mesh.neighbour_exchange``, zero-filled at the chain ends - exactly the
-matrix boundary).
+(``Mesh.neighbour_exchange_start``, zero-filled at the chain ends - exactly
+the matrix boundary).
 
-The rank's apply is kernel B1 (``ops/dia_kernel.py``) on the rank's
-**window**: the block's bank data zero-padded by ``halo_lo`` rows before and
-``halo_hi`` rows after, ``(m, ndiag, halo_lo + blk + halo_hi)``, applied to
-the term-major operand ``[halo_prev; W_d; halo_next]``.  One ``single`` or
-``pair`` launch computes the window's rows, of which rows
-``halo_lo : halo_lo + blk`` are the block's (the padded rows carry zero data
-and come out zero).  On a CPU tensor the same call runs B1's plain twin.
+A rank's apply splits the local contraction from the boundary corrections,
+as the JAX body does so that the transfer overlaps the bulk
+(``neptpu/parallel/halo.py:127-165``), in three steps:
 
-The JAX body splits the local contraction from the boundary corrections so
-that XLA overlaps the transfer with the bulk (``neptpu/parallel/halo.py:
-130-165``); here the one launch follows the exchange (the overlap is not
-ported).  Not carried over either: the jitted-body cache ``_lincomb_fn``
-(``halo.py:170``) - the port launches eagerly - and ``device_put`` onto a
+1. start the exchange of the strips;
+2. the **bulk**: kernel B1 (``ops/dia_kernel.py``) on the rank's block
+   ``(m, ndiag, blk)``, its rows reading the block alone and zeros outside
+   it (one ``single`` or ``pair`` launch; on a CPU tensor B1's plain twin);
+3. wait for the strips and add the **boundary corrections** of the first
+   ``halo_lo`` and last ``halo_hi`` rows, the terms that read a neighbour's
+   rows: a few plain torch ops on at most ``halo x ndiag x m`` entries, the
+   counterpart of the JAX body's ``jnp`` corrections.
+
+The one-launch window form (the block's bank zero-padded by its halos,
+applied to ``[halo_prev; W_d; halo_next]`` after the exchange) stays as
+:func:`window_operand` and ``_window_bank``, the reference the split form
+is held against.  Not carried over: the jitted-body cache ``_lincomb_fn``
+(``halo.py:170``) - the port's scans capture the step as a CUDA graph
+instead (``solvers/scan_graph.py``) - and ``device_put`` onto a
 ``NamedSharding`` (``halo.py:82``), which here picks this rank's block.
 """
 from __future__ import annotations
@@ -60,17 +66,81 @@ def window_operand(WT, halo_prev, halo_next):
     return torch.cat(parts, dim=1).contiguous()
 
 
+def _block_bank(data_d, offsets):
+    """The bulk's bank: the block's own ``(m, ndiag, blk)`` data as a
+    ``blk x blk`` DiaTermBank (B1 reads no row outside it)."""
+    blk = data_d.shape[2]
+    return DiaTermBank(data_d, offsets, (blk, blk),
+                       fro_norms=torch.zeros(data_d.shape[0]))
+
+
+def _boundary_plan(data_d, offsets, halo_lo, halo_hi):
+    """The operands of the boundary corrections of a block ``data_d (m,
+    ndiag, blk)``, both strips in one: ``(sides, rows, D, col)`` - the
+    strips read, ``"next"`` and/or ``"prev"`` in the order they are joined
+    along their columns, the block rows corrected ``(H,)``, their data on
+    the offsets reaching out of the block ``(m, nj, H)`` (zero where a
+    row's diagonal stays inside it, or past a side's own offsets) and the
+    column of the joined strips each reads ``(nj, H)`` - or None where no
+    offset leaves the block."""
+    blk, dev = data_d.shape[2], data_d.device
+    sides, rows, Ds, cols, width = [], [], [], [], 0
+    for side, h, sign in (("next", halo_hi, 1), ("prev", halo_lo, -1)):
+        js = [j for j, o in enumerate(offsets) if o * sign > 0]
+        if not h or not js:
+            continue
+        t = np.arange(h)[None, :]
+        offs = np.asarray([offsets[j] for j in js])[:, None]
+        if sign > 0:  # row blk - h + t reads row t - h + off of the next block
+            col, r = t - h + offs, np.arange(blk - h, blk)
+        else:  # row t reads the strip's column h + t + off (previous block)
+            col, r = h + t + offs, np.arange(h)
+        keep = torch.as_tensor((col >= 0) & (col < h), device=dev)
+        sides.append(side)
+        rows.append(r)
+        Ds.append(torch.where(keep, data_d[:, js][:, :, r], 0))
+        cols.append(np.clip(col, 0, h - 1) + width)
+        width += h
+    if not sides:
+        return None
+    nj = max(c.shape[0] for c in cols)
+    D = torch.cat([torch.nn.functional.pad(d, (0, 0, 0, nj - d.shape[1]))
+                   for d in Ds], dim=2).contiguous()
+    col = np.concatenate([np.pad(c, ((0, nj - c.shape[0]), (0, 0)))
+                          for c in cols], axis=1)
+    return (tuple(sides), torch.as_tensor(np.concatenate(rows), device=dev),
+            D, torch.as_tensor(col, device=dev))
+
+
+def _add_boundary(ys, plan, halo_prev, halo_next):
+    """Add the boundary corrections to the bulk rows ``ys`` (one ``(blk,)``
+    tensor per channel, in place) from the strips: ``halo_prev``/
+    ``halo_next`` ``(channels m, h)``, channel-major, as the exchange
+    returns them.  Both strips in one gather, product and sum, then one
+    ``index_add_`` a channel."""
+    if plan is None:
+        return ys
+    sides, rows, D, col = plan
+    strips = [{"next": halo_next, "prev": halo_prev}[s] for s in sides]
+    S = torch.cat(strips, dim=1) if len(strips) > 1 else strips[0]
+    dt = ys[0].dtype
+    S = S.reshape(len(ys), D.shape[0], -1)[:, :, col].to(dt)
+    corr = torch.sum(D.to(dt) * S, dim=(1, 2))  # (channels, H)
+    for c, y in enumerate(ys):
+        y.index_add_(0, rows, corr[c])
+    return ys
+
+
 class ShardedDiaBank:
     """DiaTermBank split into ``ndev`` contiguous row blocks.
 
     Built from the whole bank on every rank (the same host input);
     :meth:`device_put` keeps this rank's block on the mesh's device:
 
-    data:    (m, ndiag, blk) — ``data[i, j, r] = A_i[s + r, s + r +
-             offsets[j]]`` (s = rank * blk; zero out of range and in the
-             padded tail);
-    window:  the block's window bank ``(m, ndiag, halo_lo + blk + halo_hi)``
-             that kernel B1 applies.
+    data:   (m, ndiag, blk) - ``data[i, j, r] = A_i[s + r, s + r +
+            offsets[j]]`` (s = rank * blk; zero out of range and in the
+            padded tail), the bank kernel B1 applies (the bulk);
+    the boundary corrections' operands, built from it once.
     """
 
     def __init__(self, bank: DiaTermBank, ndev: int):
@@ -90,11 +160,11 @@ class ShardedDiaBank:
         self.n, self.ndev, self.blk, self.nterms = n, ndev, blk, m
         self.halo_hi = max((o for o in self.offsets if o > 0), default=0)
         self.halo_lo = max((-o for o in self.offsets if o < 0), default=0)
-        self.data = self.window = None
+        self.data = self.block = self._plan = None
 
     def device_put(self, mesh, axis: str = "rows", dtype=None):
         """Keep this rank's block on ``mesh.device`` (in ``dtype``, default
-        the bank's) and build its window bank."""
+        the bank's), with its bulk bank and boundary operands."""
         if mesh.size(axis) != self.ndev:
             raise ValueError(f"bank split {self.ndev} ways, mesh axis {axis!r}"
                              f" has {mesh.size(axis)} ranks")
@@ -107,39 +177,36 @@ class ShardedDiaBank:
             block[:, :, : hi - lo] = src[:, :, lo:hi].to(block.device,
                                                          block.dtype)
         self.data = block
-        self.window = _window_bank(block, self.offsets, self.halo_lo,
-                                   self.halo_hi)
+        self.block = _block_bank(block, self.offsets)
+        self._plan = _boundary_plan(block, self.offsets, self.halo_lo,
+                                    self.halo_hi)
         return self
 
-    def exchange_t(self, WTs, mesh, axis="rows"):
-        """Halo strips of term-major blocks ``WTs`` (a sequence of
-        ``(m, blk)``), all in one exchange: ``(halo_prev (k m, halo_lo),
-        halo_next (k m, halo_hi))``, None for a zero halo."""
+    def exchange_start(self, WTs, mesh, axis="rows"):
+        """Start the exchange of the halo strips of term-major blocks
+        ``WTs`` (a sequence of ``(m, blk)``), all in one: a
+        :class:`~neptpu_torch.parallel.mesh.PendingExchange` whose
+        ``wait()`` gives ``(halo_prev (k m, halo_lo), halo_next (k m,
+        halo_hi))``, None for a zero halo."""
         lo, hi, blk = self.halo_lo, self.halo_hi, self.blk
         top = torch.cat([W[:, :hi] for W in WTs]) if hi else None
         bottom = torch.cat([W[:, blk - lo:] for W in WTs]) if lo else None
-        return mesh.neighbour_exchange(top, bottom, axis)
-
-    def _rows(self, y):
-        return y[self.halo_lo: self.halo_lo + self.blk]
+        return mesh.neighbour_exchange_start(top, bottom, axis)
 
     def lincomb_t(self, WT, mesh, axis="rows"):
         """This rank's rows of ``y = sum_i A_i W[:, i]`` for its term-major
-        block ``WT (m, blk)``: one exchange, one B1 launch on the window."""
-        prev, nxt = self.exchange_t((WT,), mesh, axis)
-        y = self.window.lincomb_apply_t(window_operand(WT, prev, nxt))
-        return self._rows(y)
+        block ``WT (m, blk)``: the exchange started, one B1 launch on the
+        block, then the boundary corrections from the strips."""
+        pending = self.exchange_start((WT,), mesh, axis)
+        y = self.block.lincomb_apply_t(WT)
+        return _add_boundary((y,), self._plan, *pending.wait())[0]
 
     def lincomb_pair_t(self, WreT, WimT, mesh, axis="rows"):
-        """The re/im channel pair of :meth:`lincomb_t`: the four strips go in
-        one exchange, the two channels in one B1 pair launch."""
-        m = WreT.shape[0]
-        prev, nxt = self.exchange_t((WreT, WimT), mesh, axis)
-        ops = [window_operand(W, None if prev is None else prev[s],
-                              None if nxt is None else nxt[s])
-               for W, s in ((WreT, slice(0, m)), (WimT, slice(m, 2 * m)))]
-        yre, yim = self.window.lincomb_apply_pair_t(*ops)
-        return self._rows(yre), self._rows(yim)
+        """The re/im channel pair of :meth:`lincomb_t`: the four strips in
+        one exchange, the two channels' bulk in one B1 pair launch."""
+        pending = self.exchange_start((WreT, WimT), mesh, axis)
+        ys = self.block.lincomb_apply_pair_t(WreT, WimT)
+        return _add_boundary(ys, self._plan, *pending.wait())
 
 
 def shard_vector(x, mesh, blk, axis: str = "rows"):
@@ -176,16 +243,17 @@ def local_halo_lincomb(data_d, offsets, W_d, halo_prev, halo_next,
                        halo_lo: int, halo_hi: int):
     """One rank's rows of ``y = sum_i A_i W[:, i]``: ``data_d (m, ndiag,
     blk)``, ``W_d (blk, m)`` and the strips ``(halo_lo, m)``/``(halo_hi, m)``
-    (row-major, as the JAX body takes them).  The window bank and operand
-    are built for this call and B1 runs once on them (the plain twin on the
-    CPU); :class:`ShardedDiaBank` keeps its window bank instead."""
+    (row-major, as the JAX body takes them).  The bulk is one B1 launch on
+    the block (the plain twin on the CPU), then the boundary corrections;
+    :class:`ShardedDiaBank` keeps the block's bank and the corrections'
+    operands instead of building them a call."""
     dt = torch.promote_types(data_d.dtype, W_d.dtype)
-    win = _window_bank(data_d.to(dt), offsets, halo_lo, halo_hi)
-    WT = window_operand(W_d.T.to(dt),
-                        None if halo_prev is None else halo_prev.T.to(dt),
-                        None if halo_next is None else halo_next.T.to(dt))
-    y = win.lincomb_apply_t(WT)
-    return y[halo_lo: halo_lo + W_d.shape[0]]
+    data_d = data_d.to(dt)
+    y = _block_bank(data_d, offsets).lincomb_apply_t(W_d.T.to(dt))
+    plan = _boundary_plan(data_d, offsets, halo_lo, halo_hi)
+    return _add_boundary((y,), plan,
+                         None if halo_prev is None else halo_prev.T,
+                         None if halo_next is None else halo_next.T)[0]
 
 
 def sharded_dia_lincomb(sbank: ShardedDiaBank, W_d, mesh,

@@ -40,7 +40,8 @@ import torch.distributed as dist
 
 from ..config import resolve_device
 
-__all__ = ["make_mesh", "initialize_distributed", "Mesh", "default_backend"]
+__all__ = ["make_mesh", "initialize_distributed", "Mesh", "PendingExchange",
+           "default_backend"]
 
 AXES = ("rows", "nodes")
 
@@ -116,8 +117,8 @@ class Mesh:
 
     def _out(self, x):
         """The tensor a collective runs on: a host copy where gloo moves a
-        CUDA tensor, else a contiguous copy (the collectives work in
-        place)."""
+        CUDA tensor, else a contiguous copy on the device (the collectives
+        work in place)."""
         return x.detach().to("cpu" if self.host_staged else x.device,
                              copy=True).contiguous()
 
@@ -125,7 +126,9 @@ class Mesh:
         return y.to(like.device) if self.host_staged else y
 
     def psum(self, x, axis):
-        """Sum of ``x`` over the ranks of ``axis`` (``all_reduce``)."""
+        """Sum of ``x`` over the ranks of ``axis`` (``all_reduce``).  Off the
+        host-staged path it reads nothing on the host and allocates only on
+        the device, so a CUDA graph can hold it."""
         if self.shape[axis] == 1:
             return x
         y = self._out(x)
@@ -134,21 +137,33 @@ class Mesh:
 
     def all_gather(self, x, axis):
         """The ``x`` of every rank of ``axis`` stacked on a new leading axis,
-        in rank order."""
-        if self.shape[axis] == 1:
+        in rank order.  NCCL gathers into one device tensor
+        (``all_gather_into_tensor``, which a CUDA graph can hold); gloo into
+        a list of tensors, stacked."""
+        size = self.shape[axis]
+        if size == 1:
             return x[None]
         y = self._out(x)
-        out = [torch.empty_like(y) for _ in range(self.shape[axis])]
-        dist.all_gather(out, y, group=self._groups[axis])
+        group = self._groups[axis]
+        if self.backend == "nccl":
+            out = torch.empty((size,) + tuple(y.shape), dtype=y.dtype,
+                              device=y.device)
+            # rank order along the flat output = stacked along a new axis
+            dist.all_gather_into_tensor(out.view(-1), y.view(-1),
+                                        group=group)
+            return out
+        out = [torch.empty_like(y) for _ in range(size)]
+        dist.all_gather(out, y, group=group)
         return self._back(torch.stack(out), x)
 
-    def neighbour_exchange(self, top, bottom, axis):
-        """Chain exchange along ``axis``: every rank sends ``top`` to the
-        previous rank and ``bottom`` to the next one.  Returns
-        ``(from_prev, from_next)``: the previous rank's ``bottom`` and the
-        next rank's ``top``, zeros at the chain ends (as ``ppermute``
-        zero-fills a missing source).  Either argument may be None (nothing
-        sent that way; None back)."""
+    def neighbour_exchange_start(self, top, bottom, axis):
+        """Start the chain exchange of :meth:`neighbour_exchange` and return
+        at once: a :class:`PendingExchange` whose ``wait()`` gives
+        ``(from_prev, from_next)``.  Work that does not read the strips can
+        run in between (the bulk of a halo apply).  Over NCCL the strips
+        are device tensors and waiting makes the current stream wait on
+        NCCL's stream, without blocking the host; host-staged, the strips go
+        to the host here and come back to the device in ``wait()``."""
         group = self._groups[axis]
         r, size = self.rank(axis), self.shape[axis]
         from_prev = None if bottom is None else torch.zeros_like(bottom)
@@ -176,13 +191,36 @@ class Mesh:
                 send(bottom, r + 1)
             if r > 0:
                 recv(from_prev, r - 1)
-        if ops:
-            for work in dist.batch_isend_irecv(ops):
-                work.wait()
-            for buf, dst in staged:
-                if dst is not buf:
-                    buf.copy_(dst)
-        return from_prev, from_next
+        works = dist.batch_isend_irecv(ops) if ops else []
+        return PendingExchange(works, ops, staged, (from_prev, from_next))
+
+    def neighbour_exchange(self, top, bottom, axis):
+        """Chain exchange along ``axis``: every rank sends ``top`` to the
+        previous rank and ``bottom`` to the next one.  Returns
+        ``(from_prev, from_next)``: the previous rank's ``bottom`` and the
+        next rank's ``top``, zeros at the chain ends (as ``ppermute``
+        zero-fills a missing source).  Either argument may be None (nothing
+        sent that way; None back)."""
+        return self.neighbour_exchange_start(top, bottom, axis).wait()
+
+
+class PendingExchange:
+    """A started :meth:`Mesh.neighbour_exchange_start`; ``wait()`` finishes
+    it and returns ``(from_prev, from_next)``.  It keeps the send buffers
+    alive until then."""
+
+    def __init__(self, works, ops, staged, result):
+        self._works, self._ops, self._staged = works, ops, staged
+        self._result = result
+
+    def wait(self):
+        for work in self._works:
+            work.wait()
+        for buf, dst in self._staged:
+            if dst is not buf:
+                buf.copy_(dst)
+        self._works = self._ops = self._staged = ()
+        return self._result
 
 
 def make_mesh(rows=None, nodes=1, device=None, multihost=False,

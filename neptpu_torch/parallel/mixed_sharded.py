@@ -5,8 +5,8 @@ bulk + stacked low-rank factors: boundary terms, arrow borders, complex
 parts), row-sharded:
 
 * the DIA bulk is a :class:`~neptpu_torch.parallel.halo.ShardedDiaBank`:
-  one halo exchange and one kernel-B1 pair launch on the rank's window per
-  apply;
+  per apply one halo exchange, overlapped with one kernel-B1 pair launch on
+  the rank's block, then the boundary corrections;
 * the low-rank factors are row-sharded too: the contraction
   ``u_r = sum_n U[n, r] W[n, tidx_r]`` is a local partial sum, and the four
   groups' partial sums (re/im parts of the real and imaginary factor
@@ -17,12 +17,14 @@ parts), row-sharded:
   and one ``psum`` of a 2R vector.
 
 :func:`iar_real_spmf_sharded` runs the complex-as-real IAR in the
-theta-scaled Taylor space (as ``neptpu/parallel/mixed_sharded.py:303-312``)
-as every rank's eager loop of m steps (``solvers/iar_sharded.py``).
+theta-scaled Taylor space (as ``neptpu/parallel/mixed_sharded.py:200-243``):
+the static-shape sharded step of ``solvers/iar_sharded.py`` with a constant
+``1/theta`` block shift, captured once and replayed on an NCCL mesh on the
+card (run at one rank only, where no collective is live), eager on a
+host-staged mesh and on the CPU.
 
 Not carried over: ``cost_only=`` (``mixed_sharded.py:370-398``), which reads
-XLA's compiled cost analysis - TPU/XLA machinery with no counterpart here -
-and the jitted ``shard_map`` scan it compiles.
+XLA's compiled cost analysis - TPU/XLA machinery with no counterpart here.
 """
 from __future__ import annotations
 
@@ -77,8 +79,10 @@ class ShardedMixedBank:
 def _mixed_lincomb_split_local(sb, WreT, WimT, mesh, axis):
     """This rank's rows of the split-channel mixed Mlincomb for its
     term-major channel blocks ``(nterms, blk)`` in ORIGINAL term order: the
-    main terms through one halo exchange and one B1 pair launch, the
-    low-rank groups' partial sums in one ``psum``."""
+    main terms through the bulk/boundary apply (one exchange, one B1 pair
+    launch on the block), the low-rank groups' partial sums in one ``psum``.
+    Nothing is read on the host: the term selections are index tensors on
+    the device and the split sizes Python ints."""
     zre, zim = sb.sdia.lincomb_pair_t(WreT[sb._sel].contiguous(),
                                       WimT[sb._sel].contiguous(), mesh, axis)
     parts = []
@@ -130,34 +134,22 @@ def _assemble_sigma(mats, fv, sigma):
     return strips, tuple(offs), Lc, Uc
 
 
-def iar_real_spmf_sharded(nep, mesh, sigma=0.0, gamma=1.0, maxit=30,
-                          neigs=6, tol=None, v=None, dtype=torch.float64,
-                          axis="rows", errmeasure=None, return_info=False):
-    """Distributed complex-as-real IAR on a mixed-bank SPMF (gun/WEP class).
-
-    Same contract as :func:`neptpu_torch.solvers.spmf_real.iar_real_spmf`
-    with ``scaled=True``, with basis, Mlincomb, orthogonalization and the
-    SPIKE+SMW shifted solve row-sharded over ``mesh``'s ``axis``; every rank
-    calls it with the same arguments and gets the same ``(lams, Q)``
-    (numpy).  The JAX package's ``cost_only`` (XLA's cost analysis) is not
-    carried over."""
+def mixed_scan_inputs(mats, fv, mesh, sigma, gamma, m, v, dt, axis):
+    """The sharded scan's ``inputs`` (``solvers.iar_sharded.sharded_scan``)
+    for an SPMF's terms ``mats``/``fv`` - this rank's mixed-bank block, its
+    SPIKE + SMW factors of M(sigma) (timed) and the theta-scaled coefficient
+    table - and ``setup``: ``t_factorize``, ``theta``, ``steps`` (m, or the
+    table's finite prefix), ``blk``, the SPIKE block and reduced-system
+    sizes and the shape of the block B1 applies (``bulk``)."""
     from ..ops.mixed import make_mixed_bank
     from ..solvers.iar_real import apply_theta, auto_theta
-    from ..solvers.iar_sharded import (pad_sigma_strips, ritz_from_sharded,
-                                       select_converged, sharded_scan)
-    from ..solvers.spmf_real import (_spmf_host_resnorm, _sync,
-                                     collect_spmf_terms, finite_table_prefix,
+    from ..solvers.iar_sharded import pad_sigma_strips
+    from ..solvers.spmf_real import (_sync, finite_table_prefix,
                                      spmf_coeff_table)
 
-    mats, fv = collect_spmf_terms(nep)
     n = mats[0].shape[0]
-    m = int(maxit)
-    dt = to_torch_dtype(dtype)
     rdt = to_numpy_dtype(dt)
-    if tol is None:
-        tol = 1e4 * float(torch.finfo(dt).eps)
-    ndev = int(mesh.size(axis))
-    dev = mesh.device
+    ndev, dev = int(mesh.size(axis)), mesh.device
 
     # the whole bank is built on the host, only this rank's block moves
     bank = make_mixed_bank(mats, dtype=rdt, fmt="dia", device="cpu")
@@ -187,36 +179,61 @@ def iar_real_spmf_sharded(nep, mesh, sigma=0.0, gamma=1.0, maxit=30,
     Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m, scaled=True)
     theta = auto_theta(Cre, Cim, m, dt)
     Cre, Cim = apply_theta(Cre, Cim, theta)
-    m_fin = finite_table_prefix(Cre, Cim, dt)
-    if m_fin < m:
-        m = m_fin
-        Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
+    m = min(m, finite_table_prefix(Cre, Cim, dt))
+    Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
 
-    if v is None:
-        v = np.ones(n)
-    v = np.asarray(v, dtype=complex)
-    v0re = shard_vector(v.real, mesh, blk, axis).to(dt)
-    v0im = shard_vector(v.imag, mesh, blk, axis).to(dt)
+    v = np.asarray(np.ones(n) if v is None else v, dtype=complex)
+    inputs = (lambda a, b: _mixed_lincomb_split_local(sbank, a, b, mesh, axis),
+              lambda f: _smw_solve_local(spike, X_d, Util_d, Kinv, f, mesh,
+                                         axis),
+              torch.as_tensor(Cre, dtype=dt, device=dev),
+              torch.as_tensor(Cim, dtype=dt, device=dev), 0.0, 0.0,
+              torch.full((m + 1,), 1.0 / theta, dtype=dt, device=dev),
+              shard_vector(v.real, mesh, blk, axis).to(dt),
+              shard_vector(v.imag, mesh, blk, axis).to(dt))
+    setup = {"t_factorize": t_fact, "theta": theta, "steps": m, "blk": blk,
+             "spike_block": spike.blk, "reduced": spike.reduced_size,
+             "bulk": tuple(sbank.sdia.data.shape)}
+    return inputs, setup
 
+
+def iar_real_spmf_sharded(nep, mesh, sigma=0.0, gamma=1.0, maxit=30,
+                          neigs=6, tol=None, v=None, dtype=torch.float64,
+                          axis="rows", errmeasure=None, return_info=False):
+    """Distributed complex-as-real IAR on a mixed-bank SPMF (gun/WEP class).
+
+    Same contract as :func:`neptpu_torch.solvers.spmf_real.iar_real_spmf`
+    with ``scaled=True``, with basis, Mlincomb, orthogonalization and the
+    SPIKE+SMW shifted solve row-sharded over ``mesh``'s ``axis``; every rank
+    calls it with the same arguments and gets the same ``(lams, Q)``
+    (numpy).  ``info`` as :func:`~neptpu_torch.solvers.iar_sharded.
+    iar_real_sharded`'s, with ``theta`` and ``steps`` (m, or the table's
+    finite prefix).  The JAX package's ``cost_only`` (XLA's cost analysis)
+    is not carried over."""
+    from ..solvers.iar_real import _hessenberg
+    from ..solvers.iar_sharded import (ritz_from_sharded, select_converged,
+                                       sharded_scan)
+    from ..solvers.spmf_real import _spmf_host_resnorm, collect_spmf_terms
+
+    mats, fv = collect_spmf_terms(nep)
+    n = mats[0].shape[0]
+    dt = to_torch_dtype(dtype)
+    if tol is None:
+        tol = 1e4 * float(torch.finfo(dt).eps)
+
+    inputs, setup = mixed_scan_inputs(mats, fv, mesh, sigma, gamma,
+                                      int(maxit), v, dt, axis)
+    m = setup["steps"]
     t0 = time.perf_counter()
-    Vre, Vim, Hre, Him = sharded_scan(
-        m, lambda a, b: _mixed_lincomb_split_local(sbank, a, b, mesh, axis),
-        lambda f: _smw_solve_local(spike, X_d, Util_d, Kinv, f, mesh, axis),
-        torch.as_tensor(Cre, dtype=dt, device=dev),
-        torch.as_tensor(Cim, dtype=dt, device=dev), 0.0, 0.0,
-        lambda k: torch.full((k,), 1.0 / theta, dtype=dt, device=dev),
-        v0re, v0im, mesh, axis)
-    _sync(dev)
+    carry, graph = sharded_scan(m, inputs, mesh, axis)
     t_scan = time.perf_counter() - t0
 
-    lams, Q = ritz_from_sharded(Vre, Vim, Hre, Him, m, n, sigma, gamma,
-                                mesh, axis)
+    lams, Q = ritz_from_sharded(*carry, m, n, sigma, gamma, mesh, axis)
     rn = errmeasure if errmeasure is not None else _spmf_host_resnorm(mats, fv)
     take, nconv, errs = select_converged(lams, Q, rn, tol, neigs)
-    info = {"t_factorize": t_fact, "t_scan": t_scan, "nconv": nconv,
-            "errs": errs, "theta": theta, "ndev": ndev, "blk": blk,
-            "spike_block": spike.blk, "reduced": spike.reduced_size,
-            "window": tuple(sbank.sdia.window.data.shape), "steps": m}
+    info = dict(setup, t_scan=t_scan, nconv=nconv, errs=errs,
+                ndev=int(mesh.size(axis)), graph=graph,
+                hessenberg=_hessenberg(carry))
     if return_info:
         return lams[take], Q[:, take], info
     return lams[take], Q[:, take]

@@ -33,21 +33,40 @@ __all__ = ["iar_scan_kernel", "iar_jitted"]
 _C = torch.complex128
 
 
+def _delegate(nep):
+    """The problem whose Mlincomb ``nep``'s Mlincomb only calls, or None: a
+    deflated SPMF's ``spmf`` (``models/deflation.py``), a projected
+    problem's ``nep_proj`` (``models/projection.py``)."""
+    from ..models.deflation import DeflatedSPMF
+    from ..models.projection import Proj_SPMF_NEP
+
+    kind = type(nep).Mlincomb
+    if kind is DeflatedSPMF.Mlincomb:
+        return nep.spmf
+    if kind is Proj_SPMF_NEP.Mlincomb:
+        return nep.nep_proj
+    return None
+
+
 def _shift_tables(nep, sigma, alpha, device):
     """``([(bank, table)], c1)`` of a problem whose Mlincomb is a derivative
     table at the shift applied to term banks (a DEP, a PEP, an SPMF over a
-    bank, sums of them): the tables made on the host over the coefficients
-    ``alpha``, and ``c1`` the coefficient of the first derivative of a
-    ``-lam I`` term (a DEP's; 0 for the others).  ``None`` for any other
-    problem."""
+    bank, sums of them, and problems whose Mlincomb only calls one of these:
+    a deflated SPMF, a projected problem): the tables made on the host over
+    the coefficients ``alpha``, and ``c1`` the coefficient of the first
+    derivative of a ``-lam I`` term (a DEP's; 0 for the others).  ``None``
+    for any other problem."""
     from ..models.dep import DEP
     from ..models.pep import PEP
     from ..models.spmf import SPMF_NEP
     from ..models.sumnep import SPMFSumNEP
     from ..ops import matfun
 
+    inner = _delegate(nep)
+    if inner is not None:
+        return _shift_tables(inner, sigma, alpha, device)
     kind = type(nep).Mlincomb
-    if isinstance(nep, SPMFSumNEP) and kind is SPMFSumNEP.Mlincomb:
+    if kind is SPMFSumNEP.Mlincomb:  # SPMFSumNEP's and GenericSumNEP's
         parts = [_shift_tables(p, sigma, alpha, device)
                  for p in (nep.nep1, nep.nep2)]
         if None in parts:

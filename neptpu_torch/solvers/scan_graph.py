@@ -74,12 +74,17 @@ class StepGraph:
     times as :meth:`advance` asks; on a CUDA device by replaying one captured
     graph (see the module docstring).  A context manager: leaving it frees
     the graph.  ``eager_steps``, ``replays`` (host graph launches) and
-    ``capture_seconds`` say how the steps ran."""
+    ``capture_seconds`` say how the steps ran.
 
-    def __init__(self, step, carry, k):
+    ``capturable=False`` runs every step eagerly on the card too: the
+    caller's up-front decision for a step no graph can hold (the sharded
+    step over collectives staged through the host)."""
+
+    def __init__(self, step, carry, k, capturable=True):
         self.step, self.carry, self.k = step, carry, k
         self.device = k.device
-        self.graphed = self.device.type == "cuda" and not _EAGER.get()
+        self.graphed = (self.device.type == "cuda" and capturable
+                        and not _EAGER.get())
         self.graph = None
         self.stream = None
         self.launches = None  # kernel launches recorded by the capture

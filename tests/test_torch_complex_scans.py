@@ -139,3 +139,49 @@ def test_tiar_jitted_spmf_applies_the_bank_to_the_complex_operand(small_gun):
     finally:
         MixedTermBank.lincomb_apply = orig
     assert seen == [((tn.n, 4), torch.complex128)] * 6
+
+
+@pytest.fixture(scope="module")
+def deflated_pep0():
+    """``pep0`` (n = 200) deflated by the pair the JAX package's
+    ``iar_jitted`` finds first at sigma = 0, in both packages."""
+    tn, jn = gallery_pair("pep0")
+    lj, Qj, _ = j_iar_jitted(jn, sigma=0.0, neigs=1, maxit=30)
+    lam, v = complex(np.asarray(lj)[0]), np.array(Qj)[:, 0]
+    return (neptpu_torch.deflate_eigpair(tn, lam, torch.from_numpy(v)),
+            neptpu.deflate_eigpair(jn, lam, v), lam)
+
+
+def test_shift_tables_unwrap_delegating_problems(deflated_pep0):
+    """A deflated SPMF's Mlincomb only calls its ``spmf``'s, so the scan's
+    derivative tables are that sum's (no host work a step, so the card
+    captures it); a projected problem delegates to its ``nep_proj``."""
+    from neptpu_torch.solvers.iar_jit import _shift_tables
+
+    dnep = deflated_pep0[0]
+    alpha = np.array([0.5**j for j in range(6)], dtype=complex)
+    got = _shift_tables(dnep, 0.1 + 0.2j, alpha, torch.device(CPU))
+    ref = _shift_tables(dnep.spmf, 0.1 + 0.2j, alpha, torch.device(CPU))
+    assert got is not None and got[1] == ref[1] == 0.0
+    assert [b for b, _ in got[0]] == [b for b, _ in ref[0]]
+    for (_, a), (_, b) in zip(got[0], ref[0]):
+        assert torch.equal(a, b)
+    proj = neptpu_torch.create_proj_NEP(dnep.spmf.nep1)
+    assert _shift_tables(proj, 0.0, alpha, torch.device(CPU)) is None
+    V = torch.eye(dnep.n, 3, dtype=torch.complex128)
+    neptpu_torch.set_projectmatrices(proj, V, V)
+    assert _shift_tables(proj, 0.0, alpha, torch.device(CPU)) is not None
+
+
+def test_iar_jitted_on_a_deflated_pep_matches_jax(deflated_pep0):
+    """``iar_jitted`` on the deflated problem converges to the JAX
+    package's eigenvalue (the conjugate of the deflated one) within rel
+    1e-8."""
+    tn, jn, lam = deflated_pep0
+    kw = dict(sigma=0.0, neigs=1, maxit=30)
+    lj, _, _ = j_iar_jitted(jn, **kw)
+    lt, Qt, _ = neptpu_torch.iar_jitted(tn, device=CPU, **kw)
+    lj, lt = np.asarray(lj), np.asarray(lt)
+    assert len(lt) == len(lj) == 1
+    assert abs(lt[0] - lj[0]) < 1e-8 * abs(lj[0])
+    assert abs(lt[0] - np.conj(lam)) < 1e-8 * abs(lam)

@@ -1,5 +1,6 @@
 """Port parity of the sharded layer's pieces: the Mesh collectives, the
-halo-exchange DIA bank (kernel B1's plain twin on each rank's window), the
+halo-exchange DIA bank (kernel B1's plain twin on each rank's block, then
+the boundary corrections from the neighbours' strips), the
 row-sharded CSR bank, the psum Gram, SPIKE, the sharded SPIKE + SMW solve
 and the node-sharded contour moments.
 
@@ -66,7 +67,8 @@ def test_ranks_agree_and_load_no_jax(world):
 
 def test_mesh_collectives(world):
     """``psum``, ``all_gather`` (rank order) and ``neighbour_exchange``
-    (zeros at the chain ends, as ``ppermute`` gives)."""
+    (zeros at the chain ends, as ``ppermute`` gives), also started and
+    waited for with another collective in between."""
     for r, out in enumerate(world):
         c = out["collectives"]
         assert c["rank"] == (r, r, 0)
@@ -78,6 +80,11 @@ def test_mesh_collectives(world):
                                       np.full(2, 100.0 * r))
         np.testing.assert_array_equal(
             c["from_next"], np.full(2, 10.0 * (r + 2) if r < NDEV - 1 else 0))
+        # neighbour_exchange_start, a psum between the start and the wait
+        prev, nxt, between = c["started"]
+        np.testing.assert_array_equal(prev, c["from_prev"])
+        np.testing.assert_array_equal(nxt, c["from_next"])
+        np.testing.assert_array_equal(between, c["psum"])
 
 
 def test_sharded_dia_lincomb_matches_jax(world, jmesh):
@@ -93,11 +100,35 @@ def test_sharded_dia_lincomb_matches_jax(world, jmesh):
         sb, shard_vector(Wop, sb.ndev, sb.blk), jmesh[0]), n)
     ref = sum(A @ Wop[:, i] for i, A in enumerate(mats))
     out = world[0]["dia"]
-    for y in (out["y"], out["y_functional"]):
+    for y in (out["y"], out["y_functional"], out["y_window"]):
         assert rel_err(y, y_j) < 1e-12
         assert rel_err(y, ref) < 1e-12
-    # the window: blk 60 plus the 15-row halos on both sides
-    assert out["window"] == (3, 5, 60 + 15 + 15)
+    # B1's bulk runs on the rank's block: 3 terms, 5 offsets, blk 60
+    assert out["bulk"] == (3, 5, 60)
+
+
+def test_bulk_boundary_apply_matches_jax_local_halo_lincomb(world):
+    """Each rank's bulk/boundary apply (gathered) equals the JAX body's
+    ``local_halo_lincomb`` on the same rank's block and strips, and the
+    one-launch window form on the same strips, at rel 1e-12 (float64)."""
+    from neptpu.ops.dia import DiaTermBank
+    from neptpu.parallel import ShardedDiaBank, local_halo_lincomb
+
+    mats, Wop = W.dia_inputs()
+    n = Wop.shape[0]
+    sb = ShardedDiaBank(DiaTermBank.from_matrices(mats), NDEV)
+    blk, lo, hi = sb.blk, sb.halo_lo, sb.halo_hi
+    Wp = np.zeros((NDEV * blk + lo + hi, Wop.shape[1]))
+    Wp[lo:lo + n] = Wop  # zero rows before the first block, after the last
+    y_j = np.concatenate([np.asarray(local_halo_lincomb(
+        sb.data[d], sb.offsets, Wp[lo + d * blk: lo + (d + 1) * blk],
+        Wp[d * blk: lo + d * blk], Wp[lo + (d + 1) * blk:
+                                      lo + (d + 1) * blk + hi], lo, hi))
+        for d in range(NDEV)])[:n]
+    out = world[0]["dia"]
+    assert rel_err(out["y"], y_j) < 1e-12
+    assert rel_err(out["y_functional"], y_j) < 1e-12
+    assert rel_err(out["y"], out["y_window"]) < 1e-12
 
 
 def test_row_sharded_bank_matches_jax(world, jmesh):

@@ -16,14 +16,13 @@ import numpy as np
 import pytest
 import scipy.sparse as sp
 import torch
-from torch.overrides import TorchFunctionMode
-from torch.utils._python_dispatch import TorchDispatchMode
 
 import jax
 import jax.numpy as jnp
 import jax.scipy.linalg as jsl
 
-from torch_port_helpers import CPU, gallery_pair, small_gun_ops
+from torch_port_helpers import (CPU, NoHostFunctions, NoScalarReads,
+                                gallery_pair, small_gun_ops)
 
 import neptpu
 import neptpu_torch
@@ -259,10 +258,11 @@ def _small_gun_nep():
 # a DEP's table is the host table of its own Mlincomb (bit for bit); a PEP
 # plus SPMF sum's SPMF table is made over all the coefficients and then
 # masked, where its Mlincomb substitutes the masked ones before the
-# matrix-function trick (rel 1e-12); a problem with no table form goes
-# through its own Mlincomb (bit for bit)
+# matrix-function trick (rel 1e-12), and so is a deflated DEP's (its
+# Mlincomb only calls its inner SPMF sum's); a problem with no table form
+# goes through its own Mlincomb (bit for bit)
 @pytest.mark.parametrize("kind,tol", [("dep", 0.0), ("pep+spmf", 1e-12),
-                                      ("mder", 0.0)])
+                                      ("deflated", 1e-12), ("mder", 0.0)])
 def test_iar_jit_shift_lincomb_equals_the_problems_mlincomb(dep, kind, tol):
     """The padded IAR step's Mlincomb at its fixed shift, with the step's
     masks (orders 1..k live), against the problem's ``Mlincomb`` with the
@@ -274,6 +274,10 @@ def test_iar_jit_shift_lincomb_equals_the_problems_mlincomb(dep, kind, tol):
         if kind == "mder":
             nep = neptpu_torch.Mder_NEP(
                 nep.n, lambda lam, der, d=nep: d.Mder_dense(lam, der))
+        if kind == "deflated":
+            v = np.random.default_rng(5).standard_normal(nep.n)
+            nep = neptpu_torch.deflate_eigpair(nep, -0.3, torch.from_numpy(v))
+            assert tiar_jit._delegate(nep) is nep.spmf
     alpha = np.array([0.7**j for j in range(M + 1)], dtype=complex)
     apply = tiar_jit._shift_lincomb(nep, sigma, alpha, torch.device(CPU))
     rng = np.random.default_rng(6)
@@ -288,32 +292,51 @@ def test_iar_jit_shift_lincomb_equals_the_problems_mlincomb(dep, kind, tol):
         assert _close(apply(Y, live).numpy(), ref.numpy(), max(tol, 0.0)), k
 
 
-class _NoHostFunctions(TorchFunctionMode):
-    """Fails on every Python-level read of a tensor to the host and every
-    tensor made from host data."""
+@pytest.fixture(scope="module")
+def mesh1():
+    """A world of one gloo rank in this process and its CPU mesh (the
+    sharded steps' collectives return at once at one rank)."""
+    import torch.distributed as dist
 
-    BANNED = {"item", "tolist", "numpy", "cpu", "__bool__", "__int__",
-              "__index__", "__float__", "__complex__", "as_tensor", "tensor",
-              "from_numpy"}
+    from neptpu_torch.parallel import make_mesh
 
-    def __torch_function__(self, func, types, args=(), kwargs=None):
-        name = getattr(func, "__name__", "")
-        if name in self.BANNED:
-            raise AssertionError(f"the scan step called {name}")
-        return func(*args, **(kwargs or {}))
-
-
-class _NoScalarReads(TorchDispatchMode):
-    """Fails where ATen reads a tensor's value as a number (a tensor used
-    as a Python index or size goes through here)."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.aten._local_scalar_dense.default:
-            raise AssertionError("the scan step read a tensor as a number")
-        return func(*args, **(kwargs or {}))
+    assert not dist.is_initialized()
+    mesh = make_mesh(rows=1, device=CPU)
+    yield mesh
+    dist.destroy_process_group()
 
 
-def _port_step(kind, dep, gun):
+def _sharded_step(kind, mesh):
+    """The sharded DEP step (``dep0_tridiag``, n = 512, the DIA bank a
+    sharded bank needs) or the sharded mixed step (the small gun), with its
+    start carry."""
+    from neptpu_torch.parallel.mixed_sharded import mixed_scan_inputs
+    from neptpu_torch.solvers.iar_sharded import (dep_scan_inputs,
+                                                  sharded_carry,
+                                                  sharded_step_fn)
+
+    m = M
+    if kind == "iar_sharded":
+        nep = neptpu_torch.nep_gallery("dep0_tridiag", 512, device=CPU)
+        inputs, _ = dep_scan_inputs(nep, mesh, DEP_SHIFT, GAMMA, m, None,
+                                    torch.float64, "rows")
+    else:
+        K, mM, W1, W2 = small_gun_ops()
+        nep = neptpu_torch.SumNEP(
+            neptpu_torch.PEP([K, mM], device=CPU),
+            neptpu_torch.SPMF_NEP([W1, W2], [t_i_sqrt(0.0), t_i_sqrt(9.0)],
+                                  device=CPU))
+        mats, fv = tspmf.collect_spmf_terms(nep)
+        inputs, setup = mixed_scan_inputs(mats, fv, mesh, GUN_SHIFT, GAMMA,
+                                          m, None, torch.float64, "rows")
+        m = setup["steps"]
+    return (sharded_step_fn(m, *inputs[:7], mesh, "rows"),
+            sharded_carry(m, *inputs[7:], mesh, "rows"))
+
+
+def _port_step(kind, dep, gun, request):
+    if kind in ("iar_sharded", "iar_spmf_sharded"):
+        return _sharded_step(kind, request.getfixturevalue("mesh1"))
     if kind == "iar_jit":
         step, carry, _, _ = _iar_jit_parts(dep)
         return step, carry
@@ -328,15 +351,18 @@ def _port_step(kind, dep, gun):
 
 @pytest.mark.parametrize("kind", ["iar_real", "iar_real_scaled",
                                   "iar_real_deflated", "tiar_real",
-                                  "tiar_jit", "iar_jit"])
-def test_scan_steps_never_read_the_step_index_on_the_host(dep, gun, kind):
+                                  "tiar_jit", "iar_jit", "iar_sharded",
+                                  "iar_spmf_sharded"])
+def test_scan_steps_never_read_the_step_index_on_the_host(dep, gun, kind,
+                                                          request):
     """Each step, called with ``k`` a tensor, neither turns ``k`` (or any
     tensor) into a Python number nor uploads host data: on the card it can
-    be captured once and replayed for every ``k``."""
-    step, carry = _port_step(kind, dep, gun)
+    be captured once and replayed for every ``k``.  The sharded steps run on
+    a one-rank mesh, their collectives included."""
+    step, carry = _port_step(kind, dep, gun, request)
     k = torch.ones((), dtype=torch.int64)
     for _ in range(3):
-        with _NoHostFunctions(), _NoScalarReads():
+        with NoHostFunctions(), NoScalarReads():
             step(carry, k)
             k.add_(1)
     assert int(k) == 4 and bool(carry[-1][:, 2].any())

@@ -150,3 +150,52 @@ def test_native_format_waits_and_bad_arguments_raise():
     with pytest.raises(ValueError, match="not supported"):
         neptpu_torch.nep_gallery("waveguide", nx=11, nz=9, neptype="SPMF",
                                  benchmark_problem="other", device=CPU)
+
+
+def test_sqrt_derivative_matches_jax_on_seeded_inputs():
+    """The scalar Gegenbauer recurrence against the JAX package's on seeded
+    ``(a, b, c, d, x)`` and against the row form on the same row (rel
+    1e-14 entry by entry)."""
+    rng = np.random.default_rng(7)
+    for _ in range(5):
+        a = float(rng.uniform(0.5, 2.0))
+        b, c, x = rng.standard_normal(3) + 1j * rng.standard_normal(3)
+        d = int(rng.integers(0, 40))
+        got = twg.sqrt_derivative(a, b, c, d, x)
+        np.testing.assert_allclose(got, jwg.sqrt_derivative(a, b, c, d, x),
+                                   rtol=1e-14)
+        np.testing.assert_allclose(
+            got, twg.sqrt_derivative_rows([b], [c], d, x, a=a)[0],
+            rtol=1e-14)
+
+
+def test_wep_coefficient_table_takes_the_scalar_recurrence(monkeypatch):
+    """The SPMF waveguide's derivative table (213-term form at nz = 21, 100
+    derivatives, the scan's theta-scaled table) runs one scalar recurrence
+    per boundary term - never the row recurrence on a single row, which
+    made the table several times slower - and equals the table built
+    through the row form to rel 1e-14 in every column (a derivative order's
+    weights over the terms, against the column's largest; entries that
+    cancel to 1e-21 differ in their last bits)."""
+    from neptpu_torch.solvers.spmf_real import spmf_coeff_table
+
+    tnep = neptpu_torch.nep_gallery("waveguide", neptype="SPMF", device=CPU,
+                                    **CASES["jarlebring"])
+    _, fv = collect_spmf_terms(tnep)
+    sigma = LAMS[1]
+    rows = twg.sqrt_derivative_rows
+
+    def no_rows(*args, **kwargs):
+        raise AssertionError("the table ran the row recurrence")
+
+    monkeypatch.setattr(twg, "sqrt_derivative_rows", no_rows)
+    table = spmf_coeff_table(fv, sigma, 1.0, 100, scaled=True)
+    monkeypatch.setattr(twg, "sqrt_derivative_rows", rows)
+    monkeypatch.setattr(twg, "sqrt_derivative",
+                        lambda a, b, c, d=0, x=0.0:
+                        rows([b], [c], d, x, a=a)[0])
+    ref = spmf_coeff_table(fv, sigma, 1.0, 100, scaled=True)
+    for got, want in zip(table, ref):
+        assert got.shape == (len(fv), 101)
+        scale = np.abs(want).max(axis=0)
+        assert np.all(np.abs(got - want).max(axis=0) <= 1e-14 * scale)

@@ -27,7 +27,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import torch  # noqa: E402
 
-from torch_port_helpers import CPU, small_gun_ops  # noqa: E402
+from torch_port_helpers import (CPU, NoHostFunctions, NoScalarReads,  # noqa: E402
+                                small_gun_ops)
 
 WORLD = 4
 # the delay-problem shift and the small gun's shift of the JAX tests
@@ -102,7 +103,12 @@ def check_collectives(rows, nodes):
     r = rows.rank("rows")
     x = torch.full((2,), float(r + 1), dtype=torch.float64)
     prev, nxt = rows.neighbour_exchange(x * 10, x * 100, "rows")
+    # the started form, with work in between
+    pending = rows.neighbour_exchange_start(x * 10, x * 100, "rows")
+    between = rows.psum(x, "rows")
+    prev2, nxt2 = pending.wait()
     return {"rank": (r, nodes.rank("nodes"), rows.rank("nodes")),
+            "started": (prev2.numpy(), nxt2.numpy(), between.numpy()),
             "psum": rows.psum(x, "rows").numpy(),
             "psum_nodes": rows.psum(x, "nodes").numpy(),
             "gather": nodes.all_gather(x, "nodes").numpy(),
@@ -110,12 +116,14 @@ def check_collectives(rows, nodes):
 
 
 def check_dia(rows, nodes):
-    """``sharded_dia_lincomb`` and its functional form
-    (``halo_exchange`` + ``local_halo_lincomb``), gathered."""
+    """``sharded_dia_lincomb`` (the bulk/boundary apply), its functional
+    form (``halo_exchange`` + ``local_halo_lincomb``) and the one-launch
+    window form on the same strips, gathered."""
     from neptpu_torch.ops.dia import DiaTermBank
     from neptpu_torch.parallel import (ShardedDiaBank, halo_exchange,
                                        local_halo_lincomb, shard_vector,
                                        sharded_dia_lincomb, unshard_vector)
+    from neptpu_torch.parallel.halo import _window_bank, window_operand
 
     mats, W = dia_inputs()
     n = W.shape[0]
@@ -126,9 +134,13 @@ def check_dia(rows, nodes):
     prev, nxt = halo_exchange(W_d, sb.halo_lo, sb.halo_hi, rows)
     y2 = local_halo_lincomb(sb.data, sb.offsets, W_d, prev, nxt, sb.halo_lo,
                             sb.halo_hi)
+    win = _window_bank(sb.data, sb.offsets, sb.halo_lo, sb.halo_hi)
+    y3 = win.lincomb_apply_t(window_operand(W_d.T, prev.T, nxt.T))
+    y3 = y3[sb.halo_lo: sb.halo_lo + sb.blk]
     return {"y": y.numpy(), "y_functional":
             unshard_vector(y2, n, rows).numpy(),
-            "window": tuple(sb.window.data.shape)}
+            "y_window": unshard_vector(y3, n, rows).numpy(),
+            "bulk": tuple(sb.data.shape)}
 
 
 def check_csr(rows, nodes):
@@ -238,30 +250,87 @@ def check_iar_dep(rows, nodes):
     lam_s, _ = neptpu_torch.iar_real(nep, dtype=torch.float64, device=CPU,
                                      **cfg)
     return {"lam": lam, "Q": Q, "lam_serial": np.asarray(lam_s),
-            "nconv": info["nconv"], "window": info["window"]}
+            "nconv": info["nconv"], "bulk": info["bulk"],
+            "hessenberg": info["hessenberg"], "graph": info["graph"]}
 
 
 def check_iar_gun(rows, nodes):
     import neptpu_torch
-    from neptpu_torch.models.gallery.nlevp import _i_sqrt_shifted
     from neptpu_torch.parallel.mixed_sharded import iar_real_spmf_sharded
 
-    K, mM, W1, W2 = small_gun_ops()
-    nep = neptpu_torch.SumNEP(
-        neptpu_torch.PEP([K, mM], device=CPU),
-        neptpu_torch.SPMF_NEP([W1, W2], [_i_sqrt_shifted(0.0),
-                                         _i_sqrt_shifted(9.0)], device=CPU))
+    nep = _small_gun()
     lam, Q, info = iar_real_spmf_sharded(nep, rows, dtype=torch.float64,
                                          return_info=True, **IAR_GUN)
     res = [float(neptpu_torch.compute_resnorm(
         nep, lam[s], torch.as_tensor(Q[:, s]))) for s in range(len(lam))]
     return {"lam": lam, "nconv": info["nconv"], "res": res,
-            "window": info["window"]}
+            "bulk": info["bulk"], "hessenberg": info["hessenberg"],
+            "graph": info["graph"], "steps": info["steps"]}
+
+
+def _small_gun():
+    """``small_gun_ops``' PEP plus the two square-root terms, on the CPU."""
+    import neptpu_torch
+    from neptpu_torch.models.gallery.nlevp import _i_sqrt_shifted
+
+    K, mM, W1, W2 = small_gun_ops()
+    return neptpu_torch.SumNEP(
+        neptpu_torch.PEP([K, mM], device=CPU),
+        neptpu_torch.SPMF_NEP([W1, W2], [_i_sqrt_shifted(0.0),
+                                         _i_sqrt_shifted(9.0)], device=CPU))
+
+
+STEPS = 3  # steps of the step checks
+
+
+def _guarded_steps(m, inputs, mesh):
+    """:data:`STEPS` sharded steps from the scan's start carry, each under
+    the modes that fail on any host read of a tensor or upload of host data;
+    the Hessenberg columns they wrote."""
+    from neptpu_torch.solvers.iar_real import _hessenberg
+    from neptpu_torch.solvers.iar_sharded import (sharded_carry,
+                                                  sharded_step_fn)
+
+    carry = sharded_carry(m, *inputs[7:], mesh, "rows")
+    step = sharded_step_fn(m, *inputs[:7], mesh, "rows")
+    k = torch.ones((), dtype=torch.int64)
+    for _ in range(STEPS):
+        with NoHostFunctions(), NoScalarReads():
+            step(carry, k)
+            k.add_(1)
+    return {"H": _hessenberg(carry)[:, :STEPS], "k": int(k)}
+
+
+def check_step_dep(rows, nodes):
+    """The delay problem's sharded step (``check_iar_dep``'s inputs), run
+    step by step under the host-read guards."""
+    import neptpu_torch
+    from neptpu_torch.solvers.iar_sharded import dep_scan_inputs
+
+    nep = neptpu_torch.nep_gallery("dep0_tridiag", IAR_DEP["n"], device=CPU)
+    m = IAR_DEP["maxit"]
+    inputs, _ = dep_scan_inputs(nep, rows, IAR_DEP["sigma"], 1.0, m, None,
+                                torch.float64, "rows")
+    return _guarded_steps(m, inputs, rows)
+
+
+def check_step_gun(rows, nodes):
+    """The small gun's sharded mixed step (``check_iar_gun``'s inputs), run
+    step by step under the host-read guards."""
+    from neptpu_torch.parallel.mixed_sharded import mixed_scan_inputs
+    from neptpu_torch.solvers.spmf_real import collect_spmf_terms
+
+    mats, fv = collect_spmf_terms(_small_gun())
+    inputs, setup = mixed_scan_inputs(mats, fv, rows, IAR_GUN["sigma"], 1.0,
+                                      IAR_GUN["maxit"], None, torch.float64,
+                                      "rows")
+    return _guarded_steps(setup["steps"], inputs, rows)
 
 
 CHECKS = {f.__name__[len("check_"):]: f for f in (
     check_collectives, check_dia, check_csr, check_gram, check_spike,
-    check_smw, check_moments, check_beyn, check_iar_dep, check_iar_gun)}
+    check_smw, check_moments, check_beyn, check_iar_dep, check_iar_gun,
+    check_step_dep, check_step_gun)}
 
 
 # -- the world -------------------------------------------------------------

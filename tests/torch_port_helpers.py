@@ -7,6 +7,8 @@ JAX reference (``neptpu``, on the CPU in float64) and the port
 import numpy as np
 import scipy.sparse as sp
 import torch
+from torch.overrides import TorchFunctionMode
+from torch.utils._python_dispatch import TorchDispatchMode
 
 # the port's entry points default to the card (``neptpu_torch.config``); the
 # parity tests run on the CPU and say so at every call
@@ -138,3 +140,28 @@ def rel_err(a, b):
     a = np.asarray(a)
     b = np.asarray(b)
     return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+class NoHostFunctions(TorchFunctionMode):
+    """Fails on every Python-level read of a tensor to the host and every
+    tensor made from host data."""
+
+    BANNED = {"item", "tolist", "numpy", "cpu", "__bool__", "__int__",
+              "__index__", "__float__", "__complex__", "as_tensor", "tensor",
+              "from_numpy"}
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        name = getattr(func, "__name__", "")
+        if name in self.BANNED:
+            raise AssertionError(f"the scan step called {name}")
+        return func(*args, **(kwargs or {}))
+
+
+class NoScalarReads(TorchDispatchMode):
+    """Fails where ATen reads a tensor's value as a number (a tensor used
+    as a Python index or size goes through here)."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten._local_scalar_dense.default:
+            raise AssertionError("the scan step read a tensor as a number")
+        return func(*args, **(kwargs or {}))
