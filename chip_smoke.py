@@ -17,7 +17,12 @@ Phases, a few informative lines each (any failure exits non-zero):
    here); both again at the delay problem's shape (n = 1e4, 2 terms, the 9
    offsets of ``dep_symm_double``) in float32 and float64; and the bfloat16
    kernels (bf16 bank and operands, float32 sums and result), single and
-   pair, at the headline and the delay shape - max
+   pair, at the headline and the delay shape; the generic body (more than
+   16 offsets or 4 terms) at a wide band (11655, 2 terms, 211 offsets; f32
+   single and pair, f64 pair), [generic]'s quartic PEP bank (1e6, 5, 9; f32
+   single and pair, f64 pair, bf16 single), a 27-point stencil on a 100^3
+   grid (1e6, 2, 27; f32) and, correctness only, 300 offsets (11655, 1) from
+   the device array - max
    relative error against the twin within the stated tolerance, the pair
    equal to two single launches, median CUDA-event times of kernel, twin and
    the nearest library calls (a ``torch.sparse`` CSR product of the stacked
@@ -28,7 +33,9 @@ Phases, a few informative lines each (any failure exits non-zero):
    empty-kernel floor the same two ways.  Where ``--parent`` holds an
    unpacked copy of the parent commit, that commit's kernel body is built
    as a second library and timed in turns (old, new, new, old) beside the
-   present one, and its results must equal the present ones bit for bit;
+   present one, and its results must equal the present ones bit for bit
+   (the narrow body) or within the row's tolerance (the generic body, which
+   sums in another order);
 4. main paths, through the entry points a user calls, each with the kernel
    launch counts set to 0 just before and read just after:
    * SpMV headline: a DIA bank at n = 1e6 (4 terms x 9 diagonals) applied
@@ -37,6 +44,13 @@ Phases, a few informative lines each (any failure exits non-zero):
      ``lincomb_apply`` (which transposes first), in float32 and as a
      bfloat16 bank (single and re/im pair apply), each row within its
      rounding bound of the scipy product;
+   * generic: a quartic ``PEP`` of five seeded 9-offset stencil matrices
+     at n = 1e6 (``--seed``), its bank a 5-term ``DiaTermBank`` that only
+     the generic body takes: ``compute_Mlincomb`` with three derivative
+     columns at two shifts on complex128 and float32 operands, and the
+     bank's float32 single and pair and bfloat16 single applies, each
+     against a host scipy CSR float64 product (rel 1e-12 / 1e-5; bf16 within
+     its rounding bound); every launch on the generic body;
    * gun_like (n = 9956): float32 complex-as-real IAR (SPIKE + SMW shifted
      solve, kernel-backed bank apply) -> cluster -> Newton refinement to
      backward error 1e-9 (driven toward 1e-11), the ``bench.py`` protocol;
@@ -424,58 +438,73 @@ def _in_turns(torch, timer, old, new):
 
 
 class ParentBody:
-    """The kernels of the parent commit's ``dia_spmv.cu`` (one thread per
-    row, offsets from a device array, row-major operand ``W (n, m)``), built
-    as a second library from an unpacked copy of that commit and launched
-    through a bare ctypes call, for timing beside the present body in the
-    same run.  A measurement input: the port itself never loads it."""
+    """The kernels of the parent commit's ``dia_spmv.cu``, built as a second
+    library from an unpacked copy of that commit and launched through a bare
+    ctypes call on its own bank struct (the parent's ``DiaBank``: data,
+    offsets array, n, m, ndiag, rows a thread, 256 offsets by value;
+    term-major operands), for timing beside the present body in the same
+    run.  A measurement input: the port itself never loads it."""
 
     SUFFIX = {"float32": "f32", "float64": "f64", "bfloat16": "bf16"}
 
     def __init__(self, torch, dia_kernel, source):
         import ctypes
 
-        self.torch = torch
+        class Bank(ctypes.Structure):
+            _fields_ = [("data", ctypes.c_void_p),
+                        ("offsets_dev", ctypes.c_void_p),
+                        ("n", ctypes.c_longlong), ("m", ctypes.c_int),
+                        ("ndiag", ctypes.c_int), ("vec", ctypes.c_int),
+                        ("offsets", ctypes.c_int * 256)]
+
+        self.torch, self.dia_kernel, self.Bank = torch, dia_kernel, Bank
         library = dia_kernel.KernelLibrary("dia_spmv_parent", source)
         self.lib = ctypes.CDLL(library.build())
         self.build_seconds = library.build_seconds
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
         for sfx in self.SUFFIX.values():
             fn = getattr(self.lib, f"dia_lincomb_{sfx}")
-            fn.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+            fn.argtypes = [ctypes.POINTER(Bank), ptr, ptr, ptr]
             fn.restype = i32
             fn = getattr(self.lib, f"dia_lincomb_pair_{sfx}")
-            fn.argtypes = [ptr, ptr, ptr, ptr, ptr, ptr, i64, i32, i32, ptr]
+            fn.argtypes = [ctypes.POINTER(Bank), ptr, ptr, ptr, ptr, ptr]
             fn.restype = i32
 
     def prepare(self, data, offs, WT, WimT):
-        """Closures ``(single, pair)`` on the row-major copies of the
-        operands; each call allocates its result and launches once."""
+        """Closures ``(single, pair)`` on the same term-major operands; each
+        call allocates its result and launches once."""
+        import ctypes
+
         torch = self.torch
         m, ndiag, n = data.shape
         sfx = self.SUFFIX[str(data.dtype).split(".")[1]]
         f1 = getattr(self.lib, f"dia_lincomb_{sfx}")
         f2 = getattr(self.lib, f"dia_lincomb_pair_{sfx}")
         offs_dev = torch.tensor(offs, dtype=torch.int32, device=data.device)
-        W, Wim = WT.T.contiguous(), WimT.T.contiguous()
-        rdt = torch.float32 if data.dtype == torch.bfloat16 else data.dtype
+        bank = self.Bank()
+        bank.data, bank.offsets_dev = data.data_ptr(), offs_dev.data_ptr()
+        bank.n, bank.m, bank.ndiag = n, m, ndiag
+        bank.vec = self.dia_kernel.rows_per_thread(data.dtype, n)
+        for d, o in enumerate(tuple(offs)[:256]):
+            bank.offsets[d] = o
+        ref = ctypes.byref(bank)
+        rdt = self.dia_kernel.result_dtype(data.dtype)
 
         def single():
             y = torch.empty(n, dtype=rdt, device=data.device)
-            rc = f1(data.data_ptr(), offs_dev.data_ptr(), W.data_ptr(),
-                    y.data_ptr(), n, m, ndiag,
+            rc = f1(ref, WT.data_ptr(), y.data_ptr(),
                     torch.cuda.current_stream().cuda_stream)
             check(rc == 0, f"parent body: launch failed ({rc})")
             return y
 
         def pair():
             y = torch.empty((2, n), dtype=rdt, device=data.device)
-            rc = f2(data.data_ptr(), offs_dev.data_ptr(), W.data_ptr(),
-                    Wim.data_ptr(), y[0].data_ptr(), y[1].data_ptr(), n, m,
-                    ndiag, torch.cuda.current_stream().cuda_stream)
+            rc = f2(ref, WT.data_ptr(), WimT.data_ptr(), y[0].data_ptr(),
+                    y[1].data_ptr(), torch.cuda.current_stream().cuda_stream)
             check(rc == 0, f"parent body: pair launch failed ({rc})")
             return y[0], y[1]
 
+        single.keep = pair.keep = (offs_dev, bank)  # alive while in use
         return single, pair
 
 
@@ -531,6 +560,21 @@ def _library_times(torch, data, offs, WT, WimT, y_plain, tol):
     return out
 
 
+# [kernel] rows held against their twin and not timed
+CHECK_ONLY = {"300 offsets f32"}
+
+
+def _unstaged_launcher(dia_kernel, data, offs):
+    """The bank prepared for the generic body with no staged window: every
+    diagonal reads the operand through L1 (the staged plan's comparator)."""
+    plan = dia_kernel.generic_plan
+    dia_kernel.generic_plan = lambda *a, **k: plan(*a, **k, stage=False)
+    try:
+        return dia_kernel.DiaLauncher(data, offs)
+    finally:
+        dia_kernel.generic_plan = plan
+
+
 def _us(ms):
     return "n/a" if ms is None else f"{ms * 1e3:.2f}"
 
@@ -538,9 +582,10 @@ def _us(ms):
 def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
                         extra=None):
     """Both kernels vs. their plain twins; returns rows keyed by shape.
-    ``parent``: a :class:`ParentBody` to time in turns beside the kernels;
-    ``extra``: more banks by name, held in float64 (the gallery problems'
-    DIA banks)."""
+    ``parent``: a :class:`ParentBody` to time in turns beside the kernels
+    (the narrow body must equal it bit for bit; the generic body, which sums
+    in another order, within the row's tolerance); ``extra``: more banks by
+    name, held in float64 (the gallery problems' DIA banks)."""
     from neptpu_torch.ops.sparse import make_term_bank
 
     gen = torch.Generator(device=DEVICE).manual_seed(0)
@@ -560,7 +605,6 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
         ("wep f32", None, wm[1], wm[2], wm[0], 1e-5, True),
         ("wep_large f32", None, wl[1], wl[2], wl[0], 1e-5, True),
         ("headline f32", None, head_offs, HEADLINE_N, HEADLINE_M, 1e-5, True),
-        ("wide f32", None, tuple(range(-105, 106)), 11655, 2, 1e-5, False),
         ("gun_like f64", gun_bank.data.to(torch.float64), gun_bank.offsets,
          None, None, 1e-12, True),
         ("dep f32", torch.float32, dp[1], dp[2], dp[0], 1e-5, True),
@@ -576,6 +620,24 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
         ("wep f64", torch.float64, wm[1], wm[2], wm[0], 1e-12, True),
     ] + [(f"{key} f64", bank.data.to(torch.float64), bank.offsets, None,
           None, 1e-12, True) for key, bank in (extra or {}).items()]
+    # the generic body (more than 16 offsets or more than 4 terms): a wide
+    # bank, [generic]'s quartic PEP, a 27-point stencil on a 100^3 grid, and
+    # more offsets than ride by value (correctness only)
+    wide = tuple(range(-105, 106))
+    g27 = tuple(sorted(dz * 10_000 + dy * 100 + dx for dz in (-1, 0, 1)
+                       for dy in (-1, 0, 1) for dx in (-1, 0, 1)))
+    shapes += [
+        ("wide f32", None, wide, 11655, 2, 1e-5, True),
+        ("wide f64", torch.float64, wide, 11655, 2, 1e-12, True),
+        ("quartic f32", torch.float32, head_offs, HEADLINE_N,
+         GENERIC["terms"], 1e-5, True),
+        ("quartic f64", torch.float64, head_offs, HEADLINE_N,
+         GENERIC["terms"], 1e-12, True),
+        ("quartic bf16", bf16, head_offs, HEADLINE_N, GENERIC["terms"], 1e-5,
+         False),
+        ("27-point f32", torch.float32, g27, HEADLINE_N, 2, 1e-5, False),
+        ("300 offsets f32", torch.float32, tuple(range(-150, 150)), 11655, 1,
+         1e-5, False)]
     # [sharded]: the bulk of each rank's apply, B1 on the rank's block of
     # the bank, at one rank and at four; the scans' float64 pair and the
     # SpMV headline's float32 single apply
@@ -620,11 +682,29 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
               f"{name}: result in {y.dtype}")
         check(torch.equal(y, dia_kernel.dia_lincomb(data, offs, WT)),
               f"{name}: prepared and functional entry differ")
+        # the narrow body must equal the parent's bit for bit; the generic
+        # one sums in another order and is held to the row's tolerance
+        body = "generic" if launcher.generic else "narrow"
         old1 = old2 = None
-        same_as_parent = None
+        same_as_parent = parent_rel = None
         if parent is not None:
             old1, old2 = parent.prepare(data, offs, WT, WimT)
-            same_as_parent = bool(torch.equal(old1(), y))
+            y_old = old1()
+            same_as_parent = bool(torch.equal(y_old, y))
+            parent_rel = float((y - y_old).abs().max() / y_old.abs().max())
+            check(same_as_parent or (launcher.generic and parent_rel <= tol),
+                  f"{name}: result differs from the parent body's "
+                  f"(max rel {parent_rel:.3e})")
+        if name in CHECK_ONLY:
+            print(f"[kernel] {name} ({body} body, {launcher.plan}): n={n} "
+                  f"m={m} ndiag={ndiag} max_rel_err={rel:.3e} (tol {tol:g}) "
+                  f"max_abs_err={abs_err:.3e}; parent body max rel gap "
+                  f"{parent_rel}; correctness only, not timed", flush=True)
+            check(rel <= tol, f"{name}: kernel disagrees with its twin "
+                              f"(max rel err {rel:.3e} > {tol:g})")
+            rows[name] = {"shape": name, "n": n, "m": m, "ndiag": ndiag,
+                          "max_abs_err": abs_err}
+            continue
 
         def timer(torch, fn):
             return _median_ms(torch, fn, reps, inner)
@@ -634,28 +714,45 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
         if small:
             old_graph_ms, graph_ms = _in_turns(
                 torch, _graph_ms, old1, lambda: launcher.single(WT))
+        l1 = None
+        if launcher.generic and launcher.plan.clusters:
+            # the windows' worth: the same bank with every diagonal read
+            # through L1, in turns, and the same bits
+            bare = _unstaged_launcher(dia_kernel, data, offs)
+            check(torch.equal(bare.single(WT), y),
+                  f"{name}: staged and unstaged results differ")
+            l1 = _in_turns(torch, timer, lambda: bare.single(WT),
+                           lambda: launcher.single(WT))
+            if small:
+                l1 += _in_turns(torch, _graph_ms, lambda: bare.single(WT),
+                                lambda: launcher.single(WT))
+            print(f"[kernel] {name}: windows staged / through L1, in turns: "
+                  f"{_us(l1[1])} / {_us(l1[0])} us eager" + (
+                      f", {_us(l1[3])} / {_us(l1[2])} us graph replay"
+                      if small else "") + "; bit-equal: True", flush=True)
         plain_ms = _median_ms(torch, lambda: dia_kernel.dia_lincomb_plain(
             data, offs, WT), reps, inner)
         bound_ms, by, nbytes = _bound(n, m, ndiag, 1, data.element_size(),
                                       dtn)
         lib = _library_times(torch, data, offs, WT, WimT, y_plain, tol)
         lib_ms, lib_graph_ms = lib["mv"] if lib else (None, None)
-        print(f"[kernel] {name}: n={n} m={m} ndiag={ndiag} rows/thread="
-              f"{launcher.vec} max_rel_err="
+        print(f"[kernel] {name}: n={n} m={m} ndiag={ndiag} {body} body "
+              f"({launcher.plan or f'rows/thread={launcher.vec}'}) "
+              f"max_rel_err="
               f"{rel:.3e} (tol {tol:g}) max_abs_err={abs_err:.3e} kernel "
               f"{ms * 1e3:.2f} us eager ({nbytes / ms / 1e6:.1f} GB/s), "
               f"{_us(graph_ms)} us graph replay; parent body "
               f"{_us(old_ms)} us eager, {_us(old_graph_ms)} us graph replay, "
-              f"bit-equal to it: {same_as_parent}; plain "
+              f"bit-equal to it: {same_as_parent} (max rel gap "
+              f"{parent_rel}); plain "
               f"{plain_ms * 1e3:.2f} us; bound {bound_ms * 1e3:.3f} us by {by} "
               f"({nbytes} B at 3.35 TB/s); sparse-CSR mv {_us(lib_ms)} us "
               f"eager, {_us(lib_graph_ms)} us graph replay", flush=True)
         check(rel <= tol, f"{name}: kernel disagrees with its twin "
                           f"(max rel err {rel:.3e} > {tol:g})")
-        check(same_as_parent is not False,
-              f"{name}: result differs from the parent body's")
-        row = {"shape": name, "n": n, "m": m, "ndiag": ndiag,
-               "max_abs_err": abs_err, "ms": ms, "plain_ms": plain_ms,
+        row = {"shape": name, "n": n, "m": m, "ndiag": ndiag, "body": body,
+               "l1_ms": l1, "max_abs_err": abs_err, "ms": ms,
+               "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": by, "library_ms": lib_ms,
                "graph_ms": graph_ms, "parent_ms": old_ms,
                "parent_graph_ms": old_graph_ms,
@@ -672,6 +769,13 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
         p_rel = p_abs / float(max(pre.abs().max(), pim.abs().max()))
         y2 = launcher.single(WimT)
         equal = bool(torch.equal(yre, y) and torch.equal(yim, y2))
+        if old2 is not None:
+            pre_old, pim_old = old2()
+            gap = float(max((yre - pre_old).abs().max(),
+                            (yim - pim_old).abs().max())
+                        / max(pre_old.abs().max(), pim_old.abs().max()))
+            check(gap == 0 or (launcher.generic and gap <= tol),
+                  f"{name}: pair differs from the parent body's ({gap:.3e})")
         old_pair_ms, pair_ms = _in_turns(
             torch, timer, old2, lambda: launcher.pair(WT, WimT))
         old_pair_graph_ms = pair_graph_ms = None
@@ -713,7 +817,7 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
                             f"(max rel err {p_rel:.3e} > {tol:g})")
         check(equal, f"{name}: pair kernel differs from two single launches")
         rows[name + " pair"] = {
-            "shape": name, "n": n, "m": m, "ndiag": ndiag,
+            "shape": name, "n": n, "m": m, "ndiag": ndiag, "body": body,
             "max_abs_err": p_abs, "ms": pair_ms, "plain_ms": pair_plain_ms,
             "bound_ms": pb_ms, "bound_by": pby, "library_ms": lib_pair_ms,
             "graph_ms": pair_graph_ms, "parent_ms": old_pair_ms,
@@ -733,7 +837,7 @@ def phase_kernel_checks(torch, dia_kernel, gun_bank, parent=None,
           f"{head['gbs'] / copy_gbs:.3f} of it (bank 144 MB, W 16 MB); "
           "bounds at the copy rate: " + ", ".join(
               f"{k} {r['nbytes'] / copy_gbs / 1e3:.3f} us"
-              for k, r in rows.items()), flush=True)
+              for k, r in rows.items() if "nbytes" in r), flush=True)
     del x, y
     return rows
 
@@ -837,6 +941,139 @@ def phase_spmv_path(torch, dia_kernel):
           f"bf16 headline applies launched {entry}")
     return {"counts": dict(dia_kernel.DIA_SPMV.counts), "entry": entry,
             "y": y.cpu().numpy()}
+
+
+# [generic]: a quartic PEP (5 terms) on the SpMV headline's 9-offset stencil
+# at n = 1e6, the bank kernel B1's narrow body (<= 4 terms) does not take;
+# two shifts, three derivative columns
+GENERIC = dict(terms=5, lams=(0.7, -0.4 + 0.3j), ncols=3, budget=120.0)
+
+
+def quartic_matrices(seed):
+    """Five seeded 9-offset stencil matrices at the SpMV headline's shape
+    (scipy CSR, float64) and their offsets."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    n, w = HEADLINE_N, int(round(np.sqrt(HEADLINE_N)))
+    offs = (-w - 1, -w, -w + 1, -1, 0, 1, w - 1, w, w + 1)
+    return [sp.diags([rng.standard_normal(n - abs(o)) for o in offs], offs,
+                     shape=(n, n), format="csr")
+            for _ in range(GENERIC["terms"])], offs
+
+
+def pep_coefficients(degree, lam, ncols):
+    """``C[d, j] = d! / (d - j)! lam^(d - j)`` (zero for j > d): the weight
+    of ``A_d V[:, j]`` in ``sum_j M^(j)(lam) V[:, j]``, on the host."""
+    import math
+
+    C = np.zeros((degree + 1, ncols), dtype=complex)
+    for d in range(degree + 1):
+        for j in range(min(d, ncols - 1) + 1):
+            C[d, j] = math.perm(d, j) * complex(lam) ** (d - j)
+    return C
+
+
+def phase_generic(torch, dia_kernel, seed):
+    """[generic]: the quartic PEP through ``PEP(...)`` and
+    ``compute_Mlincomb`` (complex128 and float32 operands, two shifts, three
+    derivative columns), then its bank through the entries the scans use
+    (float32 single and re/im pair, bfloat16 single), each against a host
+    scipy CSR float64 product; every launch on the generic body.  Returns
+    the launches by entry point."""
+    import scipy.sparse as sp
+
+    from neptpu_torch import PEP, compute_Mlincomb
+    from neptpu_torch.ops.dia import DiaTermBank
+
+    t0 = time.perf_counter()
+    mats, offs = quartic_matrices(seed)
+    n, m, k = HEADLINE_N, GENERIC["terms"], GENERIC["ncols"]
+    stack = sp.vstack(mats, format="csr")  # the host reference's operator
+    rng = np.random.default_rng(seed + 1)
+    V = rng.standard_normal((n, k)) + 1j * rng.standard_normal((n, k))
+    V32 = rng.standard_normal((n, k)).astype(np.float32)
+
+    def host(lam, X):
+        """sum_j M^(j)(lam) X[:, j] from the scipy terms in float64."""
+        T = np.asarray(stack @ X).reshape(m, n, k)
+        return np.einsum("dnk,dk->n", T, pep_coefficients(m - 1, lam, k))
+
+    def rel(y, ref):
+        y = y.cpu().numpy() if isinstance(y, torch.Tensor) else y
+        return float(np.abs(y - ref).max() / np.abs(ref).max())
+
+    dia_kernel.DIA_SPMV.reset_counts()
+    nep = PEP(mats, device=DEVICE)  # float64 bank
+    nep32 = PEP(mats, dtype=np.float32, device=DEVICE)
+    t_build = time.perf_counter() - t0
+    for p in (nep, nep32):
+        check(isinstance(p.bank, DiaTermBank) and p.bank.nterms == m
+              and p.bank.offsets == tuple(sorted(offs)),
+              f"the quartic PEP's bank is {type(p.bank).__name__} "
+              f"({getattr(p.bank, 'nterms', '?')} terms), not a {m}-term "
+              "DiaTermBank on the stencil's offsets")
+        check(dia_kernel.is_generic(p.bank.nterms, p.bank.ndiag),
+              "the quartic PEP's bank would run the narrow body")
+    errs = {}
+    Vd, V32d = torch.from_numpy(V).to(DEVICE), torch.from_numpy(V32).to(DEVICE)
+    for lam in GENERIC["lams"]:
+        # the user's entry point: complex128 and float32 operands
+        y = compute_Mlincomb(nep, lam, Vd)
+        errs[f"Mlincomb c128 lam={lam}"] = (rel(y, host(lam, V)), 1e-12)
+        y = compute_Mlincomb(nep32, lam, V32d)
+        errs[f"Mlincomb f32 lam={lam}"] = (
+            rel(y, host(lam, V32.astype(np.float64))), 1e-5)
+    # the scans' entries on the float32 bank: the operand term-major
+    C = pep_coefficients(m - 1, GENERIC["lams"][0], k).real
+    WT = torch.from_numpy((C @ V32.T.astype(np.float64)).astype(
+        np.float32)).to(DEVICE)
+    ref = host(GENERIC["lams"][0], V32.astype(np.float64))
+    errs["bank f32 single"] = (rel(nep32.bank.lincomb_apply_t(WT), ref), 1e-5)
+    Cc = pep_coefficients(m - 1, GENERIC["lams"][1], k)
+    Wc = Cc @ V32.T.astype(np.float64)
+    WreT = torch.from_numpy(Wc.real.astype(np.float32)).to(DEVICE)
+    WimT = torch.from_numpy(Wc.imag.astype(np.float32)).to(DEVICE)
+    yre, yim = nep32.bank.lincomb_apply_pair_t(WreT, WimT)
+    errs["bank f32 pair"] = (
+        rel(torch.complex(yre.double(), yim.double()),
+            host(GENERIC["lams"][1], V32.astype(np.float64))), 1e-5)
+    # bfloat16 bank and operand (float32 sums): within the bound of rounding
+    # both factors, |dy[r]| <= 2^-7 sum |data W| (as the headline's bf16 path)
+    bank16 = nep32.bank.astype(torch.bfloat16)
+    W16 = WT.to(torch.bfloat16)
+    y16 = bank16.lincomb_apply_t(W16)
+    Wh = W16.float().cpu().numpy().astype(np.float64)
+    ref16 = sum(A @ Wh[i] for i, A in enumerate(mats))
+    room = sum(abs(A) @ np.abs(Wh[i]) for i, A in enumerate(mats))
+    worst16 = float(np.max(np.abs(y16.cpu().numpy() - ref16)
+                           / np.maximum(room, 1e-30)))
+    torch.cuda.synchronize()
+    entry = dict(dia_kernel.DIA_SPMV.entry_counts)
+    generic = dict(dia_kernel.DIA_SPMV.generic_counts)
+    wall = time.perf_counter() - t0
+    print(f"[generic] quartic PEP n={n} terms={m} offsets={len(offs)} "
+          f"({type(nep.bank).__name__}, {nep.bank.data.dtype} and "
+          f"{nep32.bank.data.dtype}) built in {t_build:.3f} s; plan "
+          f"{nep32.bank.launcher(torch.float32).plan}", flush=True)
+    for what, (err, tol) in errs.items():
+        print(f"[generic] {what}: max_rel_err vs host CSR float64 "
+              f"{err:.3e} (tol {tol:g})", flush=True)
+        check(err <= tol, f"[generic] {what} off by {err:.3e} (> {tol:g})")
+    print(f"[generic] bank bf16 single: max |dy| / sum|data W| per row "
+          f"{worst16:.3e} (bound 2^-7 = {2**-7:.3e}); launches "
+          f"{ {e: v for e, v in entry.items() if v} }, on the generic body "
+          f"{ {e: v for e, v in generic.items() if v} }; phase {wall:.3f} s "
+          f"(budget {GENERIC['budget']:g} s)", flush=True)
+    check(worst16 <= 2**-7, f"[generic] bf16 apply off by {worst16:.3e}")
+    check(generic == entry, "a [generic] launch went to the narrow body")
+    want = {"dia_lincomb_pair_f64": 4, "dia_lincomb_f32": 1,
+            "dia_lincomb_pair_f32": 1, "dia_lincomb_bf16": 1}
+    check({e: v for e, v in entry.items() if v} == want,
+          f"[generic] launched {entry}, expected {want}")
+    check(wall <= GENERIC["budget"],
+          f"[generic] took {wall:.1f} s (> {GENERIC['budget']:g} s)")
+    return entry
 
 
 def run_time_to_tol(torch, dia_kernel, key, make_nep, sigma, gamma=1.0,
@@ -3374,6 +3611,8 @@ def main():
                          "HEAD | tar -x -C DIR): where it is there, its "
                          "kernel body is timed in turns beside the present "
                          "one")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="seed of [generic]'s quartic PEP and operands")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3404,6 +3643,8 @@ def main():
     # before a path is driven and read just after)
     spmv = phase_spmv_path(torch, dia_kernel)
     paths = {"spmv": spmv["entry"]}
+    # the generic body's path: a quartic PEP at n = 1e6
+    paths["generic"] = phase_generic(torch, dia_kernel, args.seed)
     gun = run_time_to_tol(
         torch, dia_kernel, "gun_like",
         lambda: nep_gallery("gun_like", device=DEVICE), SIGMA, gamma=GAMMA,
@@ -3524,6 +3765,15 @@ def main():
         ("dia_lincomb_bf16@dep", "dep bf16", ["dia_lincomb_bf16"], ("dep",)),
         ("dia_lincomb_pair_bf16@dep", "dep bf16 pair",
          ["dia_lincomb_pair_bf16"], ("dep",)),
+        # the generic body, on [generic]'s quartic PEP (n = 1e6, 5 terms)
+        ("dia_lincomb_f32@generic", "quartic f32", ["dia_lincomb_f32"],
+         ("generic",)),
+        ("dia_lincomb_pair_f32@generic", "quartic f32 pair",
+         ["dia_lincomb_pair_f32"], ("generic",)),
+        ("dia_lincomb_pair_f64@generic", "quartic f64 pair",
+         ["dia_lincomb_pair_f64"], ("generic",)),
+        ("dia_lincomb_bf16@generic", "quartic bf16", ["dia_lincomb_bf16"],
+         ("generic",)),
     ]
     # the gallery problems' DIA banks: a row for each entry point their
     # paths launched, at least one per bank
@@ -3562,6 +3812,7 @@ def main():
             "parent_graph_ms": row["parent_graph_ms"],
             "shape": f"{row['shape']} n={row['n']} m={row['m']} "
                      f"ndiag={row['ndiag']}",
+            "body": row["body"],
             "entry_points": entries,
             "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels}), flush=True)

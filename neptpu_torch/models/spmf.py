@@ -78,11 +78,14 @@ class SPMF_NEP(AbstractSPMF):
     """Concrete SPMF over a term bank.
 
     ``Av``: n x n matrices (scipy-sparse or array-like); ``fv``: matrix
-    functions built from ``neptpu_torch.ops.matfun`` primitives; ``device``:
+    functions built from ``neptpu_torch.ops.matfun`` primitives;
+    ``align_sparsity_patterns``: kept for API parity, as in the JAX package
+    (alignment is the storage whenever all operands are sparse); ``device``:
     where the bank lives."""
 
     def __init__(self, Av: Sequence, fv: Sequence[Callable], dtype=None,
-                 bank=None, check_consistency: bool = True, device=None):
+                 align_sparsity_patterns: bool = True, bank=None,
+                 check_consistency: bool = True, device=None):
         if bank is None:
             bank = make_term_bank(Av, dtype=dtype, device=device)
         self.bank = bank

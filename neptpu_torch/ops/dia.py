@@ -212,9 +212,17 @@ class DiaTermBank:
         nz = torch.tensordot(w.to(dt), self.data.to(dt), dims=1)  # (ndiag, n)
         return DiaTermBank(nz[None], self.offsets, self.shape)
 
+    def combine_dense(self, w):
+        """``sum_i w_i A_i`` as a dense (n, n) matrix."""
+        return self.to_dense_sum(w)
+
     def term(self, i):
         """Single-term view (matvec/matmat/to_dense/@)."""
         return DiaTermBank(self.data[i][None], self.offsets, self.shape)
+
+    def term_dense(self, i):
+        """Term ``i`` as a dense (n, n) matrix."""
+        return self.term(i).to_dense()
 
     def to_dense(self):
         """Dense matrix of a single-term bank."""

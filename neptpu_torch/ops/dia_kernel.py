@@ -49,6 +49,9 @@ __all__ = [
     "empty_launch",
     "shifted_rows",
     "build_kernel",
+    "is_generic",
+    "generic_plan",
+    "GenericPlan",
 ]
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -87,7 +90,9 @@ class KernelLibrary:
     ``counts`` holds, per wrapper, the kernel launches made through it (and
     only there); ``launches`` is their sum.  ``entry_counts`` splits the same
     launches by C entry point (``dia_lincomb_pair_f32``, ...), one per data
-    type.  ``build_seconds`` and ``build_log`` record the last build."""
+    type; ``generic_counts`` counts, by entry point, those of them that went
+    to the generic body (:func:`is_generic` banks).  ``build_seconds`` and
+    ``build_log`` record the last build."""
 
     def __init__(self, name, source):
         self.name = name
@@ -95,6 +100,7 @@ class KernelLibrary:
         self.counts = {"dia_lincomb": 0, "dia_lincomb_pair": 0}
         self.entry_counts = {f"{entry}_{sfx}": 0 for entry in self.counts
                              for sfx in _SUFFIX.values()}
+        self.generic_counts = dict(self.entry_counts)
         self.build_seconds = None
         self.build_log = ""
         self._lib = None
@@ -104,20 +110,23 @@ class KernelLibrary:
     def launches(self):
         return sum(self.counts.values())
 
+    def _all_counts(self):
+        return self.counts, self.entry_counts, self.generic_counts
+
     def reset_counts(self):
-        for counts in (self.counts, self.entry_counts):
+        for counts in self._all_counts():
             for key in counts:
                 counts[key] = 0
 
     def snapshot(self):
-        """A copy of the counts: ``(counts, entry_counts)``."""
-        return dict(self.counts), dict(self.entry_counts)
+        """A copy of the counts: ``(counts, entry_counts,
+        generic_counts)``."""
+        return tuple(dict(counts) for counts in self._all_counts())
 
     def launches_since(self, snapshot):
         """The launches counted since ``snapshot``, in its form."""
         return tuple({key: now[key] - then[key] for key in now}
-                     for now, then in zip((self.counts, self.entry_counts),
-                                          snapshot))
+                     for now, then in zip(self._all_counts(), snapshot))
 
     def add_counts(self, delta, times=1):
         """Add ``times`` times the launches ``delta`` (as
@@ -125,7 +134,7 @@ class KernelLibrary:
         capture counts the launches it records though it runs none
         (``times=-1`` takes them off again); a replay runs them without a
         call that counts (``times=1`` a replay)."""
-        for counts, d in zip((self.counts, self.entry_counts), delta):
+        for counts, d in zip(self._all_counts(), delta):
             for key, v in d.items():
                 counts[key] += times * v
 
@@ -211,6 +220,130 @@ ROWS_BUILT = {torch.float32: (1,), torch.float64: (1,),
 WIDE_MIN_ROWS = 1 << 17
 
 
+# the generic body (banks wider than the narrow body's 16 offsets or 4
+# terms), as the CUDA source has them (kGroups, kRowThreads, kGenericSmem,
+# kMaxClusters): fixed runs of the (diagonal, term) streams, each summed
+# from zero and added in order (a warp each in the split kernel), threads of
+# a block of the rows kernel, shared memory a block may hold (windows, then
+# the warps' partial sums), staged windows at most
+GENERIC_RUNS = 8
+ROW_THREADS = 128
+GENERIC_SMEM = 48 * 1024
+MAX_CLUSTERS = 32
+# below this many rows the generic body splits each 64-row tile's streams
+# among the 8 warps of its block (an n ~ 1e4 bank keeps ~180 blocks); from
+# here each of a block's 128 threads walks all streams for its own 4 row
+# groups (2 of double or of bfloat16 pairs): 528 blocks of 512 float rows
+# and more, four for each of the H100's 132 SMs
+GENERIC_WIDE_ROWS = 4 * 132 * ROW_THREADS * 4
+# the narrow body's reach (kNarrow, kMaxTerms of the CUDA source)
+NARROW_OFFSETS, NARROW_TERMS = 16, 4
+
+
+def is_generic(m, ndiag):
+    """Whether an ``(m, ndiag, n)`` bank runs the generic body (more than
+    16 offsets or more than 4 terms) rather than the narrow one."""
+    return ndiag > NARROW_OFFSETS or m > NARROW_TERMS
+
+
+class GenericPlan:
+    """Where the generic body finds the operand of a bank, made once a bank
+    on the host by :func:`generic_plan`.
+
+    ``split``: the split kernel (a tile of ``32 * rows * gvec`` rows, each
+    warp one run of the streams), else the rows kernel (a tile of
+    ``128 * rows * gvec`` rows, each thread all streams for its own
+    ``rows`` groups of ``gvec``).  ``clusters`` lists the
+    staged windows as ``(start, len, base)``: for the tile starting at row
+    ``r0`` the operand elements ``[r0 + start, r0 + start + len)`` of every
+    term, held at ``[base, base + len)`` of that term's window of ``window``
+    elements.  ``pos[d]``: row ``r0 + t`` of diagonal d's operand
+    (``W[i, r0 + t + offsets[d]]``) sits at ``pos[d] + t`` of the window, or
+    -1 where that diagonal's cluster is not staged and the kernel reads the
+    operand through L1."""
+
+    def __init__(self, split, rows, gvec, window, clusters, pos):
+        self.split, self.rows, self.gvec = split, rows, gvec
+        self.window = window
+        self.tile = (32 if split else ROW_THREADS) * rows * gvec
+        self.clusters = tuple(clusters)
+        self.pos = tuple(pos)
+
+    def __repr__(self):
+        staged = sum(p >= 0 for p in self.pos)
+        return (f"GenericPlan({'split' if self.split else 'rows'}, "
+                f"tile={self.tile}, rows={self.rows}, "
+                f"gvec={self.gvec}, window={self.window}, "
+                f"{len(self.clusters)} staged windows, {staged} of "
+                f"{len(self.pos)} diagonals staged)")
+
+
+def generic_plan(offsets, n, m, itemsize, gvec=1, stage=True):
+    """The generic body's :class:`GenericPlan` for a bank of ``m`` terms with
+    ``offsets`` at ``n`` rows, ``itemsize`` bytes an element, ``gvec``
+    consecutive rows a lane loads as one word.
+
+    The sorted distinct offsets form clusters: an offset joins the cluster
+    before it where the gap is at most a tile (a separate window would cost
+    a tile of elements more) and the cluster's window still fits.  Clusters
+    are staged, the most diagonals per window element first, while the
+    windows of all terms of a PAIR launch fit ``GENERIC_SMEM`` (so one plan
+    serves both entries); a cluster's window is ``tile + span + 2`` elements
+    rounded up to even, starting at an even row offset, so bfloat16 windows
+    can move as aligned 4-byte pairs.  The rows kernel (``n`` from
+    ``GENERIC_WIDE_ROWS``) stages nothing, and neither does ``stage=False``:
+    every diagonal then reads the operand through L1."""
+    split = n < GENERIC_WIDE_ROWS
+    rows = 2 if split or itemsize == 8 or gvec == 2 else 4
+    tile = (32 if split else ROW_THREADS) * rows * gvec
+    budget = GENERIC_SMEM // (2 * m * itemsize)  # a term's window elements
+    if not (stage and split):
+        budget = 0
+    max_span = budget - tile - 3
+    groups = []  # [lo, hi, diagonals]
+    count = {}
+    for o in offsets:
+        count[o] = count.get(o, 0) + 1
+    for o in sorted(count):
+        if (groups and o - groups[-1][1] <= tile
+                and o - groups[-1][0] <= max_span):
+            groups[-1][1] = o
+            groups[-1][2] += count[o]
+        else:
+            groups.append([o, o, count[o]])
+
+    def length(g):
+        span = g[1] - g[0]
+        return (tile + span + 3) // 2 * 2
+
+    staged, total = [], 0
+    for g in sorted(groups, key=lambda g: (-g[2] / length(g), g[0])):
+        if len(staged) < MAX_CLUSTERS and total + length(g) <= budget:
+            staged.append(g)
+            total += length(g)
+    staged.sort()
+    clusters, where, base = [], {}, 0
+    for lo, hi, _ in staged:
+        start = lo - (lo & 1)  # even, at or below lo
+        clusters.append((start, length((lo, hi)), base))
+        for o in count:
+            if lo <= o <= hi:
+                where[o] = base + o - start
+        base += length((lo, hi))
+    return GenericPlan(split, rows, gvec, base, clusters,
+                       [where.get(o, -1) for o in offsets])
+
+
+class ClustersStruct(ctypes.Structure):
+    """``Clusters`` of ``csrc/dia_spmv.cu``: the staged windows."""
+
+    _fields_ = [("count", ctypes.c_int),
+                ("window", ctypes.c_int),
+                ("start", ctypes.c_int * MAX_CLUSTERS),
+                ("len", ctypes.c_int * MAX_CLUSTERS),
+                ("base", ctypes.c_int * MAX_CLUSTERS)]
+
+
 class BankStruct(ctypes.Structure):
     """``DiaBank`` of ``csrc/dia_spmv.cu``: what a launch needs of a bank."""
 
@@ -220,7 +353,13 @@ class BankStruct(ctypes.Structure):
                 ("m", ctypes.c_int),
                 ("ndiag", ctypes.c_int),
                 ("vec", ctypes.c_int),
-                ("offsets", ctypes.c_int * MAX_BY_VALUE)]
+                ("offsets", ctypes.c_int * MAX_BY_VALUE),
+                ("pos_dev", ctypes.c_void_p),
+                ("split", ctypes.c_int),
+                ("rows", ctypes.c_int),
+                ("gvec", ctypes.c_int),
+                ("clusters", ClustersStruct),
+                ("pos", ctypes.c_int * MAX_BY_VALUE)]
 
 
 def rows_per_thread(dtype, n):
@@ -278,14 +417,35 @@ class DiaLauncher:
         self._index = data.device.index
         self._row_bytes = n * (4 if data.dtype == torch.bfloat16
                                else data.element_size())
-        self._offsets_dev = None
+        self._offsets_dev = self._pos_dev = None
         bank = BankStruct()
+        # the generic body's plan; bfloat16 rows go in aligned pairs where
+        # every bank row starts 4-byte aligned
+        self.generic = is_generic(m, ndiag)
+        self.plan = None
+        if self.generic:
+            pairs = (data.dtype == torch.bfloat16 and n % 2 == 0
+                     and data.data_ptr() % 4 == 0)
+            self.plan = plan = generic_plan(offsets, n, m,
+                                            data.element_size(),
+                                            2 if pairs else 1)
+            bank.split, bank.rows, bank.gvec = plan.split, plan.rows, plan.gvec
+            cl = bank.clusters
+            cl.count, cl.window = len(plan.clusters), plan.window
+            for c, (start, length, base) in enumerate(plan.clusters):
+                cl.start[c], cl.len[c], cl.base[c] = start, length, base
+            for d, p in enumerate(plan.pos[:MAX_BY_VALUE]):
+                bank.pos[d] = p
         if self._on_cuda:
             bank.data = data.data_ptr()
             if ndiag > MAX_BY_VALUE:
                 self._offsets_dev = torch.tensor(offsets, dtype=torch.int32,
                                                  device=data.device)
                 bank.offsets_dev = self._offsets_dev.data_ptr()
+                self._pos_dev = torch.tensor(self.plan.pos,
+                                             dtype=torch.int32,
+                                             device=data.device)
+                bank.pos_dev = self._pos_dev.data_ptr()
         bank.n, bank.m, bank.ndiag = n, m, ndiag
         for d, o in enumerate(offsets[:MAX_BY_VALUE]):
             bank.offsets[d] = o
@@ -327,6 +487,8 @@ class DiaLauncher:
             DIA_SPMV.check(rc, entry)
         DIA_SPMV.counts[entry] += 1
         DIA_SPMV.entry_counts[self._entries[entry]] += 1
+        if self.generic:
+            DIA_SPMV.generic_counts[self._entries[entry]] += 1
 
     def single(self, WT):
         """``y (n,)`` for one term-major operand ``WT (m, n)``."""

@@ -145,6 +145,9 @@ class DenseTermBank:
     def device(self):
         return self.A.device
 
+    def term_dense(self, i):
+        return self.A[i]
+
     def term(self, i):
         return self.A[i]
 
@@ -281,15 +284,33 @@ class SparseTermBank:
             [sp.block_diag((A, zero), format="csr") for A in mats],
             dtype=self.dtype, device=self.device)
 
-    def term(self, i):
+    def term_csr(self, i):
+        """Term ``i`` as a :class:`CSR` on the bank's pattern."""
         return CSR(self.data[i], self.indices, self.row_ids, self.indptr,
                    self.shape)
+
+    def term(self, i):
+        return self.term_csr(i)
+
+    def term_dense(self, i):
+        return self.term_csr(i).to_dense()
 
     def combine(self, w):
         w = torch.as_tensor(w).to(self.data.device)
         dt = torch.promote_types(w.dtype, self.data.dtype)
         nz = torch.tensordot(w.to(dt), self.data.to(dt), dims=1)
         return CSR(nz, self.indices, self.row_ids, self.indptr, self.shape)
+
+    def combine_dense(self, w):
+        return self.combine(w).to_dense()
+
+    def to_dense_bank(self):
+        """The same terms as a :class:`DenseTermBank` on the bank's
+        device."""
+        A = torch.zeros((self.nterms,) + self.shape, dtype=self.dtype,
+                        device=self.device)
+        A[:, self.row_ids, self.indices] += self.data
+        return DenseTermBank(A, self.fro_norms)
 
     def lincomb_apply(self, W):
         """``sum_i A_i @ W[:, i]``: one gather + elementwise + index_add."""

@@ -56,16 +56,36 @@ def _local_rank():
     return int(os.environ.get("LOCAL_RANK", 0))
 
 
-def initialize_distributed(backend=None, device=None, init_method=None,
-                           world_size=None, rank=None):
+def _merge(name, value, alias, alias_value):
+    """One of two names for the same argument; both given must agree."""
+    if value is not None and alias_value is not None and value != alias_value:
+        raise ValueError(f"{name}={value!r} and {alias}={alias_value!r} "
+                         "disagree")
+    return value if value is not None else alias_value
+
+
+def initialize_distributed(coordinator_address=None, num_processes=None,
+                           process_id=None, backend=None, device=None,
+                           init_method=None, world_size=None, rank=None):
     """Initialize the default ``torch.distributed`` process group.
 
-    With no arguments, reads the torchrun variables (``MASTER_ADDR``,
+    The JAX package's arguments come first and keep their meaning:
+    ``coordinator_address`` (``"host:port"`` of the rendezvous, here the
+    ``tcp://`` ``init_method``), ``num_processes`` (``world_size``) and
+    ``process_id`` (``rank``); each may be given under either name.  With no
+    arguments, reads the torchrun variables (``MASTER_ADDR``,
     ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``; ``LOCAL_RANK`` picks the CUDA
     device of an NCCL rank).  Safe to call more than once (True once a group
     exists, whoever made it), and a no-op returning False in a single
     process with no cluster configured.  ``backend`` defaults to the one
     that goes with ``device`` (the card unless ``device="cpu"``)."""
+    if coordinator_address is not None and "://" not in coordinator_address:
+        coordinator_address = f"tcp://{coordinator_address}"
+    init_method = _merge("init_method", init_method, "coordinator_address",
+                         coordinator_address)
+    world_size = _merge("world_size", world_size, "num_processes",
+                        num_processes)
+    rank = _merge("rank", rank, "process_id", process_id)
     if dist.is_initialized():
         return True
     env = os.environ
@@ -223,21 +243,33 @@ class PendingExchange:
         return self._result
 
 
-def make_mesh(rows=None, nodes=1, device=None, multihost=False,
-              backend=None):
+def make_mesh(rows=None, nodes=1, devices=None, multihost=False, *,
+              device=None, backend=None):
     """A ``(rows, nodes)`` :class:`Mesh` over the ranks of the default
     process group.
 
     ``multihost=True`` first wires the group from the torchrun variables
     (:func:`initialize_distributed`).  Where no group exists yet and no
     cluster is configured, a world of one rank is started over an in-memory
-    store (the single-process mesh).  ``device`` is the card unless the
-    caller asks for the CPU; ``backend`` defaults to the one that goes with
-    it (NCCL for CUDA, gloo for the CPU).  The mesh's communication device
-    follows the backend: gloo meshes are built over the CPU, and with a CUDA
-    ``device`` their collectives stage through the host."""
+    store (the single-process mesh).  ``devices``: the ranks' devices in
+    mesh order (rank r computes on ``devices[r]``; one for each rank, and
+    ``rows`` defaults to their number over ``nodes``), as the JAX package
+    takes its mesh's devices; otherwise ``device``, the card unless the
+    caller asks for the CPU.  ``backend`` defaults to the one that goes with
+    the device (NCCL for CUDA, gloo for the CPU).  The mesh's communication
+    device follows the backend: gloo meshes are built over the CPU, and with
+    a CUDA device their collectives stage through the host."""
     from torch.distributed.device_mesh import init_device_mesh
 
+    if devices is not None:
+        devices = [torch.device(d) for d in devices]
+        if len({d.type for d in devices}) != 1:
+            raise ValueError(f"a mesh's devices are of one type, got "
+                             f"{devices}")
+        if device is None:
+            device = devices[0].type
+        elif torch.device(device).type != devices[0].type:
+            raise ValueError(f"device={device!r} but devices={devices}")
     device = resolve_device(device)
     backend = backend or default_backend(device)
     if dist.is_initialized() and backend not in dist.get_backend():
@@ -251,6 +283,13 @@ def make_mesh(rows=None, nodes=1, device=None, multihost=False,
         dist.init_process_group(backend, store=dist.HashStore(), rank=0,
                                 world_size=1)
     world = dist.get_world_size()
+    if devices is not None:
+        if len(devices) != world:
+            raise ValueError(f"{len(devices)} devices for a world of {world} "
+                             "ranks")
+        device = devices[dist.get_rank()]
+        if device.type == "cuda" and device.index is not None:
+            torch.cuda.set_device(device)
     if rows is None:
         rows = world // nodes
     if rows * nodes != world:

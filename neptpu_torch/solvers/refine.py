@@ -127,11 +127,24 @@ def _validate_shifts(ops, sig_f, bsolver, rel_tol=1e-6, seed=123):
     return [int(j) for j in np.nonzero(~np.isfinite(rel) | (rel > rel_tol))[0]]
 
 
+class _HostBatchSolver:
+    """The host backend's batch solver: one scipy ``splu`` of M at each
+    pair's shift ``sig``, applied column by column."""
+
+    def __init__(self, lus, sig):
+        self.lus = lus
+        self.sig = sig
+
+    def solve(self, R):
+        return np.stack([self.lus[j].solve(R[:, j])
+                         for j in range(R.shape[1])], axis=1)
+
+
 def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
-                  errmeasure=None, dtype=None, p=16, plan=None, ir=0,
-                  shift_rel=1e-8, max_batch=None, backend="chip",
-                  target_distinct=None, device=None, stats=None,
-                  _second_pass=False):
+                  errmeasure=None, dtype=None, p=16, bsolver=None, plan=None,
+                  ir=0, shift_rel=1e-8, return_solver=False, max_batch=None,
+                  backend="chip", target_distinct=None, device=None,
+                  stats=None, _second_pass=False):
     """Per-pair nonlinear inverse iteration ``v <- M(sig_j)^{-1} M'(lam_j) v``
     with a least-squares eigenvalue update, residuals in complex128 on the
     host.  Each pair's shift ``sig_j`` sits a relative ``shift_rel`` off its
@@ -148,12 +161,23 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
     given, accumulates over all chunks and passes ``"chip_shifts"`` (shifts
     factored and solved on the device) and ``"host_fallback_shifts"`` (shifts
     of the chip backend whose probe solve failed validation and went to a
-    host splu instead).  Returns ``(lams, Q, errs)``."""
+    host splu instead).
+
+    ``bsolver``: the batch solver of an earlier call (``return_solver=True``)
+    with one shift a pair.  On the chip backend it is a
+    :class:`BatchedShiftSMW`, used without factorization or chunking but
+    probe-validated as a new one is, so a shift that fails still goes to a
+    host splu (as in the JAX package).  On the host backend it is the host's
+    batch of splu factors, reused only where it was factored at these very
+    shifts and refactored otherwise (the JAX package always refactors; the
+    factors are the same).  Returns ``(lams, Q, errs)``, and the batch
+    solver of the first pass as a fourth item with ``return_solver=True``
+    (None where the pairs went in chunks or there were none)."""
     lams = np.array(lams, dtype=complex, copy=True)
     Q = np.array(Q, dtype=complex, copy=True)
     k = len(lams)
     if k == 0:
-        return lams, Q, np.zeros(0)
+        return (lams, Q, np.zeros(0)) + ((None,) if return_solver else ())
     if backend not in ("chip", "host", "auto"):
         raise ValueError(f"backend must be chip|host|auto, got {backend!r}")
     # ONE partition count for both the memory budget and the solver itself
@@ -179,11 +203,11 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
         device = resolve_device(device)
         if dtype is None:
             dtype = torch.float32
-        if plan is None:
+        if plan is None and bsolver is None:
             plan = ShiftPlan(mats, fv)
     # memory-aware chunking: each chunk gets its OWN factorization (built,
     # used for all sweeps, freed)
-    if backend == "chip" and not _second_pass:
+    if backend == "chip" and bsolver is None and not _second_pass:
         if max_batch is None:
             lim = _refine_batch_limit(plan, p=p)
             fits = [c for c in BATCH_SIZES if c <= lim]
@@ -199,21 +223,23 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
                     errmeasure=errmeasure, dtype=dtype, p=p, plan=plan,
                     ir=ir, shift_rel=shift_rel, max_batch=max_batch,
                     backend="chip", device=device, stats=stats)
-            return lams, Q, errs
+            return (lams, Q, errs) + ((None,) if return_solver else ())
 
     ops = _TermOps(csr, fv)
     sig_f = lams + 1j * shift_rel * np.maximum(np.abs(lams), 1.0)
     if backend == "host":
-        lus = _host_shift_lus(csr, fv, sig_f)
-
-        def solve(R):
-            return np.stack([lus[j].solve(R[:, j]) for j in range(k)], axis=1)
+        if bsolver is None or not np.array_equal(bsolver.sig, sig_f):
+            bsolver = _HostBatchSolver(_host_shift_lus(csr, fv, sig_f), sig_f)
+        solve = bsolver.solve
     else:
-        # factor at OFFSET shifts: an eigenvalue-accurate shift makes M(lam_j)
-        # singular to ~the backward error, and the float32-seeded refinement
-        # diverges once kappa * eps_f32 > 1
-        bsolver = BatchedShiftSMW(mats, fv, sig_f, dtype=dtype, p=p,
-                                  plan=plan, ir=ir, device=device)
+        if bsolver is None:
+            # factor at OFFSET shifts: an eigenvalue-accurate shift makes
+            # M(lam_j) singular to ~the backward error, and the
+            # float32-seeded refinement diverges once kappa * eps_f32 > 1
+            bsolver = BatchedShiftSMW(mats, fv, sig_f, dtype=dtype, p=p,
+                                      plan=plan, ir=ir, device=device)
+        # one probe solve a shift, a passed solver's too: a shift whose
+        # solve fails goes to a host splu
         bad = _validate_shifts(ops, sig_f, bsolver)
         lus = _host_shift_lus(csr, fv, sig_f[bad]) if bad else {}
         if stats is not None:
@@ -302,6 +328,8 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
         passes += 1
         if not improved:
             break
+    if return_solver:
+        return lams, Q, errs, bsolver
     return lams, Q, errs
 
 

@@ -251,6 +251,113 @@ def test_term_major_kernels_narrow_generic_and_packed(cuda, dtype, rtol, offs,
         assert torch.equal(y1re, yre) and torch.equal(y1im, yim)
 
 
+# the generic body (more than 16 offsets or more than 4 terms) in both
+# regimes: odd n, m = 5...8, more offsets than ride by value, clusters that
+# are not all staged, n past GENERIC_WIDE_ROWS; within a few roundings of the
+# twin, the pair equal to two singles bit for bit, and the same bits from an
+# operand one element off its alignment (bfloat16 windows then move through
+# registers instead of as aligned pairs)
+GENERIC_CASES = [
+    (tuple(range(-20, 21)), 1201, 2),
+    ((-81, -80, -79, -1, 0, 1, 79, 80, 81), 6000, 5),
+    ((-81, -80, -79, -1, 0, 1, 79, 80, 81), 6000, 6),
+    (tuple(range(-10, 9)), 1201, 7),
+    (tuple(range(-2000, 2000, 100)), 5000, 8),
+    (tuple(range(-150, 150)), 1200, 1),
+    (tuple(range(-300, 300, 2)), 5001, 2),
+    ((3,), 700, 5),
+    (tuple(sorted(a * 1000 + b * 30 + c for a in (-1, 0, 1)
+                  for b in (-1, 0, 1) for c in (-1, 0, 1))), 70_001, 2),
+    ((-265, -264, -263, -1, 0, 1, 263, 264, 265), 70_000, 5)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,rtol", [(torch.float32, 1e-5),
+                                        (torch.float64, 1e-12),
+                                        (torch.bfloat16, 1e-5)])
+@pytest.mark.parametrize("offs,n,m", GENERIC_CASES)
+def test_generic_body_matches_twin(cuda, dtype, rtol, offs, n, m):
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    data = torch.randn((m, len(offs), n), generator=gen, device=cuda).to(dtype)
+    WreT = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    WimT = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    launcher = dia_kernel.DiaLauncher(data, offs)
+    assert launcher.generic
+    before = dict(dia_kernel.DIA_SPMV.generic_counts)
+    y = launcher.single(WreT)
+    yre, yim = launcher.pair(WreT, WimT)
+    torch.cuda.synchronize()
+    entry = launcher._entries
+    after = dia_kernel.DIA_SPMV.generic_counts
+    assert after[entry["dia_lincomb"]] == before[entry["dia_lincomb"]] + 1
+    assert after[entry["dia_lincomb_pair"]] == (
+        before[entry["dia_lincomb_pair"]] + 1)
+    assert torch.equal(y, yre) and torch.equal(yim, launcher.single(WimT))
+    pre, pim = dia_kernel.dia_lincomb_pair_plain(data, offs, WreT, WimT)
+    for got, ref in ((yre, pre), (yim, pim)):
+        assert float((got - ref).abs().max()) <= rtol * float(ref.abs().max())
+    shifted = []
+    for WT in (WreT, WimT):
+        big = torch.zeros(m * n + 1, dtype=dtype, device=cuda)
+        shifted.append(big[1:].view(m, n))
+        shifted[-1].copy_(WT)
+    assert torch.equal(launcher.single(shifted[0]), yre)
+    s_re, s_im = launcher.pair(*shifted)
+    assert torch.equal(s_re, yre) and torch.equal(s_im, yim)
+
+
+# the order of the sums is the plan's, not the launch shape's: the other
+# regime (GENERIC_WIDE_ROWS moved across n) and no staged windows give the
+# same bits
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64,
+                                   torch.bfloat16])
+def test_generic_body_bits_do_not_depend_on_the_launch_shape(cuda, dtype,
+                                                             monkeypatch):
+    offs, n, m = (-81, -80, -79, -1, 0, 1, 79, 80, 81), 6000, 5
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    data = torch.randn((m, len(offs), n), generator=gen, device=cuda).to(dtype)
+    WreT = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    WimT = torch.randn((m, n), generator=gen, device=cuda).to(dtype)
+    first = dia_kernel.DiaLauncher(data, offs)
+    ref = first.pair(WreT, WimT)
+    plan = dia_kernel.generic_plan
+    monkeypatch.setattr(dia_kernel, "generic_plan",
+                        lambda *a, **k: plan(*a, **k, stage=False))
+    bare = dia_kernel.DiaLauncher(data, offs)
+    monkeypatch.setattr(dia_kernel, "GENERIC_WIDE_ROWS", 1000)
+    other = dia_kernel.DiaLauncher(data, offs)
+    assert first.plan.split and not other.plan.split
+    assert bare.plan.window == 0 and first.plan.window > 0
+    for launcher in (bare, other):
+        got = launcher.pair(WreT, WimT)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+# a launch the C side refuses raises at the call: a plan whose windows
+# overflow the block's shared memory, a row width it was not built for, and
+# a wide bank without its device arrays
+@pytest.mark.cuda
+def test_generic_launch_errors_raise(cuda):
+    data = torch.zeros((5, 9, 4096), device=cuda)
+    offs = (-65, -64, -63, -1, 0, 1, 63, 64, 65)
+    WT = torch.zeros((5, 4096), device=cuda)
+    launcher = dia_kernel.DiaLauncher(data, offs)
+    launcher._bank.clusters.window = 10**6
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launcher.single(WT)
+    launcher = dia_kernel.DiaLauncher(data, offs)
+    launcher._bank.gvec = 3
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launcher.pair(WT, WT)
+    wide = tuple(range(-150, 150))
+    launcher = dia_kernel.DiaLauncher(torch.zeros((1, 300, 1200), device=cuda),
+                                      wide)
+    launcher._bank.pos_dev = None
+    with pytest.raises(RuntimeError, match="launch failed"):
+        launcher.single(torch.zeros((1, 1200), device=cuda))
+
+
 # the wrappers launch on the current stream, do not synchronise and read
 # nothing back: ten pair launches captured into a CUDA graph replay to the
 # eager result, and each captured launch is counted once

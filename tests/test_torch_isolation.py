@@ -241,11 +241,83 @@ EXEMPT_NAMES = {("neptpu.solvers.iar_real", "fetch_host"),
                 ("neptpu.parallel.mesh", "NamedSharding"),
                 ("neptpu.parallel.mesh", "P")}
 
+# parameters and methods of the JAX package's public functions and classes
+# that the port's counterparts do not take, by design; every other one the
+# walk finds missing fails the test
+_PYTREE_CLASSES = ("ops.dia.DiaTermBank", "ops.mixed.MixedTermBank",
+                   "ops.partitioned.BlockTridiagSolver",
+                   "ops.partitioned.InterleavedSMW",
+                   "ops.partitioned.PartitionedBandedSolver",
+                   "ops.sparse.CSR", "ops.sparse.DenseTermBank",
+                   "ops.sparse.SparseTermBank", "solvers.iar_real.DeflationOps",
+                   "solvers.iar_real.DenseBlockLU")
+EXEMPT_MEMBERS = {
+    # the pytree protocol: JAX flattens these classes into the leaves of a
+    # traced program; a torch object holds its tensors as they are
+    *(("METHOD", f"neptpu.{c}", m) for c in _PYTREE_CLASSES
+      for m in ("tree_flatten", "tree_unflatten")),
+    # and the constructor arguments that rebuild one from its leaves
+    *(("PARAM", f"neptpu.ops.partitioned.{c}.__init__", a)
+      for c in ("BlockTridiagSolver", "InterleavedSMW",
+                "PartitionedBandedSolver") for a in ("_aux", "_leaves")),
+    # XLA's cost_analysis of the compiled program instead of a run
+    ("PARAM", "neptpu.ops.partitioned.BatchedShiftSMW.__init__", "cost_only"),
+    ("PARAM", "neptpu.parallel.mixed_sharded.iar_real_spmf_sharded",
+     "cost_only"),
+    # pads the shift batch to a canonical size so XLA's compiled programs
+    # are reused; eager torch compiles nothing
+    ("PARAM", "neptpu.ops.partitioned.BatchedShiftSMW.__init__",
+     "pad_to_canonical"),
+    # a list the jitted NLEIGS body appends its traced intermediates to
+    ("PARAM", "neptpu.solvers.nleigs.nleigs", "_debug_out"),
+    # SPMD: a JAX function of the sharded layer takes every shard of a
+    # global array and the device count; a rank of the port takes its own
+    # block and finds the count on its mesh
+    ("PARAM", "neptpu.parallel.halo.halo_exchange", "ndev"),
+    ("PARAM", "neptpu.parallel.halo.shard_vector", "ndev"),
+    ("PARAM", "neptpu.parallel.halo.unshard_vector", "xs"),
+    ("PARAM", "neptpu.parallel.halo.sharded_dia_lincomb", "Ws"),
+    ("PARAM", "neptpu.parallel.spmv.sharded_gram", "Vblocks"),
+    ("PARAM", "neptpu.parallel.spmv.sharded_gram", "wblock"),
+    ("PARAM", "neptpu.parallel.spike.SpikeBandedSolver.solve_sharded", "fs"),
+}
+
 _WALK = """
-import ast, importlib, os, sys
+import ast, importlib, inspect, os, sys
 import jax
 jax.config.update('jax_platforms', 'cpu')
 repo, replaced = sys.argv[1], set(sys.argv[2].split(','))
+
+def params(fn):
+    try:
+        ps = inspect.signature(fn).parameters.values()
+    except (TypeError, ValueError):
+        return None
+    if any(p.kind == p.VAR_KEYWORD for p in ps):
+        return None  # takes any keyword
+    return {p.name for p in ps if p.kind != p.VAR_POSITIONAL}
+
+def missing_params(where, a, b):
+    pa, pb = params(a), params(b)
+    if pa is not None and pb is not None:
+        for name in sorted(pa - pb):
+            print('PARAM', where, name)
+
+def sets_on_self(cls, name):
+    # an attribute that the class or a base sets on every instance
+    for k in cls.__mro__:
+        try:
+            tree = ast.parse(inspect.getsource(k).lstrip())
+        except (OSError, TypeError, SyntaxError):
+            continue
+        for node in ast.walk(tree):
+            if (isinstance(node, ast.Attribute) and node.attr == name
+                    and isinstance(node.ctx, ast.Store)
+                    and isinstance(node.value, ast.Name)
+                    and node.value.id == 'self'):
+                return True
+    return False
+
 for base, _, names in sorted(os.walk(os.path.join(repo, 'neptpu'))):
     for f in sorted(names):
         path = os.path.join(base, f)
@@ -260,11 +332,30 @@ for base, _, names in sorted(os.walk(os.path.join(repo, 'neptpu'))):
                   if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
                                     ast.ClassDef))
                   and not n.name.startswith('_')}
-        public |= set(getattr(importlib.import_module(mod), '__all__', ()))
+        jmod = importlib.import_module(mod)
+        public |= set(getattr(jmod, '__all__', ()))
         port = importlib.import_module('neptpu_torch' + mod[len('neptpu'):])
         for name in sorted(public):
             if not hasattr(port, name):
-                print(mod, name)
+                print('NAME', mod, name)
+                continue
+            a, b = getattr(jmod, name, None), getattr(port, name)
+            if getattr(a, '__module__', None) != mod:
+                continue  # a re-export: walked where it is defined
+            where = mod + '.' + name
+            if inspect.isclass(a) and inspect.isclass(b):
+                missing_params(where + '.__init__', a.__init__, b.__init__)
+                for m, v in vars(a).items():
+                    if m.startswith('_'):
+                        continue
+                    if not hasattr(b, m):
+                        if not sets_on_self(b, m):
+                            print('METHOD', where, m)
+                    elif callable(v) or isinstance(v, classmethod):
+                        missing_params(where + '.' + m, getattr(a, m),
+                                       getattr(b, m))
+            elif callable(a) and callable(b):
+                missing_params(where, a, b)
 """
 
 
@@ -272,14 +363,21 @@ def test_every_public_name_has_its_counterpart():
     """Module by module, every name a JAX module exports in ``__all__`` or
     defines publicly at top level exists in the port's module of the same
     path, but for the documented exemptions (``term_matrices`` of
-    ``solvers/spmf_real.py`` included)."""
+    ``solvers/spmf_real.py`` included); and every parameter of such a
+    function, and every public method and parameter of such a class (an
+    attribute the port's class sets on each instance counts), exists in its
+    counterpart, but for ``EXEMPT_MEMBERS``."""
     out = subprocess.run(
         [sys.executable, "-c", _WALK, REPO, ",".join(sorted(REPLACED_MODULES))],
         cwd=REPO, capture_output=True, text=True, timeout=120,
         env={**os.environ, "JAX_PLATFORMS": "cpu"})
     assert out.returncode == 0, out.stderr
-    missing = {tuple(line.split()) for line in out.stdout.splitlines()}
-    assert missing == EXEMPT_NAMES, sorted(missing - EXEMPT_NAMES)
+    found = [tuple(line.split()) for line in out.stdout.splitlines()]
+    missing = {f[1:] for f in found if f[0] == "NAME"}
+    assert missing == EXEMPT_NAMES, sorted(missing ^ EXEMPT_NAMES)
+    members = {f for f in found if f[0] != "NAME"}
+    assert members == EXEMPT_MEMBERS, (sorted(members - EXEMPT_MEMBERS),
+                                       sorted(EXEMPT_MEMBERS - members))
     import neptpu_torch.solvers.spmf_real as tspmf
 
     assert "term_matrices" in tspmf.__all__

@@ -12,7 +12,9 @@ never load ``jax`` or ``neptpu``: the spawned ranks import only the port.
 Run as a script (``python torch_dist_worker.py multihost``) it is one
 process of a two-process world wired from the torchrun variables
 (``MASTER_ADDR``, ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``) through
-``make_mesh(multihost=True)``.
+``make_mesh(multihost=True)``; ``python torch_dist_worker.py coordinator
+HOST:PORT RANK`` wires one through the JAX package's arguments of
+``initialize_distributed`` and ``make_mesh(devices=...)``.
 """
 import os
 import pickle
@@ -405,5 +407,29 @@ def multihost_main():
     dist.destroy_process_group()
 
 
+def coordinator_main(address, rank):
+    """One process of a two-rank world wired through the JAX package's
+    arguments, ``initialize_distributed(coordinator_address=...,
+    num_processes=2, process_id=rank)``, and a mesh over
+    ``make_mesh(devices=[cpu, cpu])``; prints the mesh and a psum."""
+    import torch.distributed as dist
+
+    from neptpu_torch.parallel import initialize_distributed, make_mesh
+
+    torch.set_num_threads(1)
+    assert initialize_distributed(coordinator_address=address,
+                                  num_processes=2, process_id=rank,
+                                  device=CPU)
+    mesh = make_mesh(devices=[CPU, CPU])
+    total = float(mesh.psum(torch.tensor([rank + 1.0]), "rows")[0])
+    print(f"[rank {dist.get_rank()}] coordinator mesh world "
+          f"{dist.get_world_size()} shape {mesh.shape} rank "
+          f"{mesh.rank('rows')} device {mesh.device} backend {mesh.backend} "
+          f"psum {total}", flush=True)
+    dist.destroy_process_group()
+
+
 if __name__ == "__main__" and sys.argv[1:] == ["multihost"]:
     multihost_main()
+elif __name__ == "__main__" and sys.argv[1:2] == ["coordinator"]:
+    coordinator_main(sys.argv[2], int(sys.argv[3]))
