@@ -46,10 +46,15 @@ It imports torch, numpy and scipy — never jax or neptpu.  Entry points run on
 the card unless the caller passes ``device="cpu"``
 (``config.default_device``).
 """
+import time as _time
+
+_T_IMPORT = _time.perf_counter_ns()
+
 from . import config  # noqa: F401  (switches TF32 off)
 from .core.errmeasure import (DefaultErrmeasure, EigvalReferenceErrmeasure,
                               Errmeasure, ResidualErrmeasure,
                               StandardSPMFErrmeasure, estimate_error)
+from .core import trace  # noqa: F401
 from .core.exceptions import (LostOrthogonalityException,
                               NoConvergenceException)
 from .core.logger import (ErrorLogger, Logger, PrintLogger, push_info,
@@ -333,3 +338,5 @@ __all__ = [
     "distributed_kernel_gauss_legendre",
     "distributed_kernel_trapezoidal",
 ]
+
+trace._add_load("nt.load.import", _time.perf_counter_ns() - _T_IMPORT)

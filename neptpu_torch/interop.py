@@ -139,7 +139,7 @@ def batched_shift_solver_from_arrays(state, device=None):
     obj.aux = (tuple(int(o) for o in offsets), p, blk, b, n2, mode)
     obj.ir, obj.refine = int(state["ir"]), int(state["refine"])
     obj.n, obj.S_real = int(state["n"]), int(state["S_real"])
-    obj.device, obj.timings = device, {}
+    obj.device = device
     if mode == "lu":
         piv = _pivots(state["piv"], device)
         r_piv = _pivots(state["r_piv"], device)

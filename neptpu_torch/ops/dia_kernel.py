@@ -38,6 +38,8 @@ import threading
 import numpy as np
 import torch
 
+from ..core import trace
+
 __all__ = [
     "DIA_SPMV",
     "DiaLauncher",
@@ -154,24 +156,28 @@ class KernelLibrary:
 
     def load(self):
         with self._lock:
-            if self._lib is not None:
-                return self._lib
-            lib = ctypes.CDLL(self.build())
-            ptr, i32 = ctypes.c_void_p, ctypes.c_int
-            bank = ctypes.POINTER(BankStruct)
-            for sfx in _SUFFIX.values():
-                fn = getattr(lib, f"dia_lincomb_{sfx}")
-                fn.argtypes = [bank, ptr, ptr, ptr]
-                fn.restype = i32
-                fn = getattr(lib, f"dia_lincomb_pair_{sfx}")
-                fn.argtypes = [bank, ptr, ptr, ptr, ptr, ptr]
-                fn.restype = i32
-            lib.dia_noop.argtypes = [ptr]
-            lib.dia_noop.restype = i32
-            lib.dia_error_string.argtypes = [i32]
-            lib.dia_error_string.restype = ctypes.c_char_p
-            self._lib = lib
-            return lib
+            if self._lib is None:
+                with trace.load_span("nt.load.kernel_library"):
+                    self._lib = self._open()
+            return self._lib
+
+    def _open(self):
+        """Build where needed, open and declare the library."""
+        lib = ctypes.CDLL(self.build())
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        bank = ctypes.POINTER(BankStruct)
+        for sfx in _SUFFIX.values():
+            fn = getattr(lib, f"dia_lincomb_{sfx}")
+            fn.argtypes = [bank, ptr, ptr, ptr]
+            fn.restype = i32
+            fn = getattr(lib, f"dia_lincomb_pair_{sfx}")
+            fn.argtypes = [bank, ptr, ptr, ptr, ptr, ptr]
+            fn.restype = i32
+        lib.dia_noop.argtypes = [ptr]
+        lib.dia_noop.restype = i32
+        lib.dia_error_string.argtypes = [i32]
+        lib.dia_error_string.restype = ctypes.c_char_p
+        return lib
 
     def check(self, rc, what):
         """Raise on a non-zero ``cudaGetLastError()`` of a launch."""

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
+from ..core import trace
 
 __all__ = [
     "csr_to_strips",
@@ -571,17 +572,18 @@ def build_spmf_shift_solver(mats, fv, sigma, dtype=torch.float32, p=16,
     ``device``.  Returns ``None`` when the bulk is not usefully banded
     (callers fall back to the dense block LU).  ``device=None`` is the card
     (``config.default_device``)."""
+    from ..parallel.spike import interleave_complex_banded
+
     device = resolve_device(device)
-    parts = assemble_shift_parts(mats, fv, sigma, max_rank=max_rank)
-    if parts is None:
-        return None
-    strips, offs, Lc, Uc = parts
+    with trace.span("nt.factorize.assemble"):
+        parts = assemble_shift_parts(mats, fv, sigma, max_rank=max_rank)
+        if parts is None:
+            return None
+        strips, offs, Lc, Uc = parts
+        rstrips, roffs = interleave_complex_banded(strips, offs)
     rdt = to_numpy_dtype(dtype)
     if np.issubdtype(rdt, np.complexfloating):
         rdt = np.dtype(np.float64 if rdt == np.complex128 else np.float32)
-    from ..parallel.spike import interleave_complex_banded
-
-    rstrips, roffs = interleave_complex_banded(strips, offs)
     if mode is None:
         mode = "lu" if rdt == np.float64 else "inv"
     # factor-cost selection: SPIKE's batched dense blocks cost p (N/p)^3;
@@ -786,47 +788,44 @@ class BatchedShiftSMW:
 
     def __init__(self, mats, fv, sigmas, dtype=torch.float32, p=8,
                  mode="inv", plan=None, refine=1, ir=0, device=None):
-        import time
-
         from ..parallel.spike import interleave_complex_banded
 
         device = resolve_device(device)
-        self.timings = {}
-        t0 = time.perf_counter()
+        on_card = device.type == "cuda"
         sigmas = np.asarray(sigmas)
         self.S_real = len(sigmas)
         rdt = to_numpy_dtype(dtype)
         if np.issubdtype(rdt, np.complexfloating):
             rdt = np.dtype(np.float64 if rdt == np.complex128 else np.float32)
-        if plan is None:
-            plan = ShiftPlan(mats, fv)
-        if not plan.ok:
-            raise ValueError("bulk is neither banded nor arrow-splittable")
-        rs_list, Lt_list, Ut_list = [], [], []
-        roffs = None
-        for sg in sigmas:
-            strips, offs, Lc, Uc = plan.parts(sg)
-            rstrips, roffs = interleave_complex_banded(strips, offs)
-            rs_list.append(rstrips)
-            if Lc is None:
-                Lc = np.zeros((plan.n, 1), dtype=complex)
-                Uc = np.zeros((plan.n, 1), dtype=complex)
-            Lh, Uh = complex_lowrank_to_half(Lc, Uc)
-            Lt_list.append(Lh)
-            Ut_list.append(Uh)
-        self.timings["host_assemble"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        n2 = rs_list[0].shape[1]
-        offsets = tuple(int(o) for o in roffs)
-        b = max(max((abs(o) for o in offsets), default=1), 1)
-        p = int(p)
-        blk = -(-n2 // p)
-        while blk < b:
-            p = max(p // 2, 1)
+        with trace.span("nt.refine.chip.assemble"):
+            if plan is None:
+                plan = ShiftPlan(mats, fv)
+            if not plan.ok:
+                raise ValueError(
+                    "bulk is neither banded nor arrow-splittable")
+            rs_list, Lt_list, Ut_list = [], [], []
+            roffs = None
+            for sg in sigmas:
+                strips, offs, Lc, Uc = plan.parts(sg)
+                rstrips, roffs = interleave_complex_banded(strips, offs)
+                rs_list.append(rstrips)
+                if Lc is None:
+                    Lc = np.zeros((plan.n, 1), dtype=complex)
+                    Uc = np.zeros((plan.n, 1), dtype=complex)
+                Lh, Uh = complex_lowrank_to_half(Lc, Uc)
+                Lt_list.append(Lh)
+                Ut_list.append(Uh)
+            n2 = rs_list[0].shape[1]
+            offsets = tuple(int(o) for o in roffs)
+            b = max(max((abs(o) for o in offsets), default=1), 1)
+            p = int(p)
             blk = -(-n2 // p)
-        stack = np.stack([_pad_strips(rs, offsets, p * blk)
-                          for rs in rs_list])
-        Lt_stack, Ut_stack = np.stack(Lt_list), np.stack(Ut_list)
+            while blk < b:
+                p = max(p // 2, 1)
+                blk = -(-n2 // p)
+            stack = np.stack([_pad_strips(rs, offsets, p * blk)
+                              for rs in rs_list])
+            Lt_stack, Ut_stack = np.stack(Lt_list), np.stack(Ut_list)
         self.aux = (offsets, p, blk, b, n2, mode)
         self.refine = int(refine)
         self.ir = int(ir)
@@ -841,42 +840,40 @@ class BatchedShiftSMW:
             # float32 factors; the block-tridiagonal float64 form of the band
             # serves the refinement residuals (the dense float32 partition
             # blocks are dropped: this path never calls the float32 matvec)
-            strips32 = dev(stack, torch.float32)
-            fac, piv, V, W, r_fac, r_piv, _ = _factor_partitioned(
-                strips32, offsets, p, blk, b, mode)
-            self.base = PartitionedBandedSolver.from_factors(
-                fac, piv, V, W, r_fac, r_piv, strips32, (None, None, None),
-                offsets, p, blk, b, n2, mode)
-            bt = int(b)
-            nblk = -(-n2 // bt)
-            self.btdims = (nblk, bt)
-            s64bt = np.zeros((len(rs_list), len(offsets), nblk * bt))
-            for i, rs in enumerate(rs_list):
-                s64bt[i, :, :n2] = rs
-            self.D64, self.B64, self.C64 = _assemble_DBC(
-                dev(s64bt, torch.float64), offsets, nblk, bt, bt, bt)
-            self.Lh64 = dev(Lt_stack, torch.float64)
-            self.Uh64 = dev(Ut_stack, torch.float64)
-            self.timings["transfer_factor"] = time.perf_counter() - t0
-            t0 = time.perf_counter()
-            self.X64 = self._bsolve64(self.Lh64)
-            # K inherits the GLOBAL conditioning of M(sigma) (near an
-            # eigenvalue kappa(K) ~ 1/dist), so it is inverted in float64
-            self.Kinv64 = torch.linalg.inv(_smw_K(self.X64, self.Uh64))
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            self.timings["smw_setup"] = time.perf_counter() - t0
+            with trace.span("nt.refine.chip.factor", device=on_card):
+                strips32 = dev(stack, torch.float32)
+                fac, piv, V, W, r_fac, r_piv, _ = _factor_partitioned(
+                    strips32, offsets, p, blk, b, mode)
+                self.base = PartitionedBandedSolver.from_factors(
+                    fac, piv, V, W, r_fac, r_piv, strips32,
+                    (None, None, None), offsets, p, blk, b, n2, mode)
+                bt = int(b)
+                nblk = -(-n2 // bt)
+                self.btdims = (nblk, bt)
+                s64bt = np.zeros((len(rs_list), len(offsets), nblk * bt))
+                for i, rs in enumerate(rs_list):
+                    s64bt[i, :, :n2] = rs
+                self.D64, self.B64, self.C64 = _assemble_DBC(
+                    dev(s64bt, torch.float64), offsets, nblk, bt, bt, bt)
+                self.Lh64 = dev(Lt_stack, torch.float64)
+                self.Uh64 = dev(Ut_stack, torch.float64)
+            with trace.span("nt.refine.chip.smw", device=on_card):
+                self.X64 = self._bsolve64(self.Lh64)
+                # K inherits the GLOBAL conditioning of M(sigma) (near an
+                # eigenvalue kappa(K) ~ 1/dist), so it is inverted in float64
+                self.Kinv64 = torch.linalg.inv(_smw_K(self.X64, self.Uh64))
             return
         tdt = to_torch_dtype(rdt)
-        strips_b = dev(stack, tdt)
-        fac, piv, V, W, r_fac, r_piv, DBC = _factor_partitioned(
-            strips_b, offsets, p, blk, b, mode)
-        base = PartitionedBandedSolver.from_factors(
-            fac, piv, V, W, r_fac, r_piv, strips_b, DBC, offsets, p, blk, b,
-            n2, mode)
-        self.smw = InterleavedSMW(base, dev(Lt_stack, tdt),
-                                  dev(Ut_stack, tdt), refine=self.refine)
-        self.timings["transfer_factor"] = time.perf_counter() - t0
+        with trace.span("nt.refine.chip.factor", device=on_card):
+            strips_b = dev(stack, tdt)
+            fac, piv, V, W, r_fac, r_piv, DBC = _factor_partitioned(
+                strips_b, offsets, p, blk, b, mode)
+            base = PartitionedBandedSolver.from_factors(
+                fac, piv, V, W, r_fac, r_piv, strips_b, DBC, offsets, p, blk,
+                b, n2, mode)
+        with trace.span("nt.refine.chip.smw", device=on_card):
+            self.smw = InterleavedSMW(base, dev(Lt_stack, tdt),
+                                      dev(Ut_stack, tdt), refine=self.refine)
 
     def _bsolve64(self, f):
         """Banded base solve to float64 accuracy: float32 SPIKE solve +

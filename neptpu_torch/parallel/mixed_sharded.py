@@ -28,12 +28,11 @@ XLA's compiled cost analysis - TPU/XLA machinery with no counterpart here.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..config import to_numpy_dtype, to_torch_dtype
+from ..core import trace
 from ..ops.partitioned import complex_lowrank_to_interleaved
 from .halo import ShardedDiaBank, shard_vector
 from .spike import SpikeBandedSolver, interleave_complex_banded
@@ -157,22 +156,23 @@ def mixed_scan_inputs(mats, fv, mesh, sigma, gamma, m, v, dt, axis):
     blk = sbank.blk
 
     # ---- distributed shifted factorization: SPIKE + SMW ------------------
-    t0 = time.perf_counter()
-    cstrips, coffs, Lc, Uc = _assemble_sigma(mats, fv, sigma)
-    cstrips = pad_sigma_strips(cstrips, coffs, ndev * blk)
-    rstrips, roffs = interleave_complex_banded(cstrips, coffs)
-    spike = SpikeBandedSolver(rstrips, roffs, mesh, axis=axis, dtype=rdt)
-    X_d = Util_d = Kinv = None
-    if Lc is not None:
-        Ltil, Util = complex_lowrank_to_interleaved(Lc, Uc)
-        Ltil_d = shard_vector(Ltil.astype(rdt), mesh, 2 * blk, axis)
-        Util_d = shard_vector(Util.astype(rdt), mesh, 2 * blk, axis)
-        X_d = spike.solve_sharded(Ltil_d)  # (2 blk, 2R)
-        K = torch.eye(Util_d.shape[1], dtype=dt, device=dev) + mesh.psum(
-            Util_d.T @ X_d, axis)
-        Kinv = torch.linalg.inv(K)
-    _sync(dev)
-    t_fact = time.perf_counter() - t0
+    with trace.clock("nt.factorize") as fact:
+        with trace.span("nt.factorize.assemble"):
+            cstrips, coffs, Lc, Uc = _assemble_sigma(mats, fv, sigma)
+            cstrips = pad_sigma_strips(cstrips, coffs, ndev * blk)
+            rstrips, roffs = interleave_complex_banded(cstrips, coffs)
+        spike = SpikeBandedSolver(rstrips, roffs, mesh, axis=axis, dtype=rdt)
+        X_d = Util_d = Kinv = None
+        if Lc is not None:
+            Ltil, Util = complex_lowrank_to_interleaved(Lc, Uc)
+            Ltil_d = shard_vector(Ltil.astype(rdt), mesh, 2 * blk, axis)
+            Util_d = shard_vector(Util.astype(rdt), mesh, 2 * blk, axis)
+            X_d = spike.solve_sharded(Ltil_d)  # (2 blk, 2R)
+            K = torch.eye(Util_d.shape[1], dtype=dt, device=dev) + mesh.psum(
+                Util_d.T @ X_d, axis)
+            Kinv = torch.linalg.inv(K)
+        _sync(dev)
+    t_fact = fact.seconds
 
     # ---- coefficient table: the theta-scaled Taylor space only, theta
     # fitted to the per-factorial table envelope
@@ -224,9 +224,9 @@ def iar_real_spmf_sharded(nep, mesh, sigma=0.0, gamma=1.0, maxit=30,
     inputs, setup = mixed_scan_inputs(mats, fv, mesh, sigma, gamma,
                                       int(maxit), v, dt, axis)
     m = setup["steps"]
-    t0 = time.perf_counter()
-    carry, graph = sharded_scan(m, inputs, mesh, axis)
-    t_scan = time.perf_counter() - t0
+    with trace.clock("nt.scan") as scan:
+        carry, graph = sharded_scan(m, inputs, mesh, axis)
+    t_scan = scan.seconds
 
     lams, Q = ritz_from_sharded(*carry, m, n, sigma, gamma, mesh, axis)
     rn = errmeasure if errmeasure is not None else _spmf_host_resnorm(mats, fv)

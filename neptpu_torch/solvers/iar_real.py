@@ -30,13 +30,13 @@ term), and ``neptpu_torch.solvers.spmf_real.iar_real_spmf`` for SPMFs.
 """
 from __future__ import annotations
 
-import time
 import warnings
 
 import numpy as np
 import torch
 
 from ..config import finfo_max, to_torch_dtype
+from ..core import trace
 from ..core.nep import compute_resnorm
 from .common import solver_device
 from .scan_graph import StepGraph
@@ -107,11 +107,13 @@ def dep_shift_block_lu(nep, sigma, dtype=torch.float32, device=None):
     device = solver_device(nep, device)
     sigma = complex(sigma)
     n = nep.n
-    M0 = sp.coo_matrix((np.full(n, -sigma), (np.arange(n), np.arange(n))),
-                       shape=(n, n)).tocsr()
-    for t, A in zip(np.asarray(nep.tauv, dtype=float),
-                    nep.bank.host_csr_terms()):
-        M0 = M0 + np.exp(-t * sigma) * A
+    with trace.span("nt.factorize.assemble"):
+        M0 = sp.coo_matrix(
+            (np.full(n, -sigma), (np.arange(n), np.arange(n))),
+            shape=(n, n)).tocsr()
+        for t, A in zip(np.asarray(nep.tauv, dtype=float),
+                        nep.bank.host_csr_terms()):
+            M0 = M0 + np.exp(-t * sigma) * A
     return block_assemble_lu(M0, dtype, device)
 
 
@@ -470,43 +472,48 @@ def run_iar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
                     solver, dt, scaled=scaled, inv_theta=inv_theta,
                     defl=defl)
 
-    t0 = time.perf_counter()
     t_check = 0.0
-    carry = _init_carry(m, torch.as_tensor(v.real, dtype=dt, device=device),
-                        torch.as_tensor(v.imag, dtype=dt, device=device), dt)
-    k = torch.ones((), dtype=torch.int64, device=device)
-    with StepGraph(step, carry, k) as run:
-        if check_error_every and np.isfinite(tol):
-            chunk = int(check_error_every)
-            k_done = 0
-            best = None  # keep the BEST peek: at deep Krylov degree the f32
-            # basis can degrade, and the final extraction must not lose
-            # pairs that an earlier peek had already certified
-            while k_done < m:
-                steps = min(chunk, m - k_done)
-                run.advance(steps)
-                k_done += steps
-                run.wait()  # the checks' time is the host's alone
-                tc = time.perf_counter()
+    with trace.clock("nt.scan") as scan:
+        carry = _init_carry(
+            m, torch.as_tensor(v.real, dtype=dt, device=device),
+            torch.as_tensor(v.imag, dtype=dt, device=device), dt)
+        k = torch.ones((), dtype=torch.int64, device=device)
+        with StepGraph(step, carry, k) as run:
+            if check_error_every and np.isfinite(tol):
+                chunk = int(check_error_every)
+                k_done = 0
+                best = None  # keep the BEST peek: at deep Krylov degree the
+                # f32 basis can degrade, and the final extraction must not
+                # lose pairs that an earlier peek had already certified
+                while k_done < m:
+                    steps = min(chunk, m - k_done)
+                    run.advance(steps)
+                    k_done += steps
+                    run.wait()  # the checks' time is the host's alone
+                    with trace.clock("nt.scan.check") as check:
+                        with trace.span("nt.scan.check.extract"):
+                            lams, Q, ests = _extract_ritz(
+                                carry, k_done, m, n, sigma, gamma)
+                        with trace.span("nt.scan.check.measure"):
+                            errs = _filtered_errs(lams, Q, ests, resnorm,
+                                                  neigs)
+                    t_check += check.seconds
+                    ncv = int(np.sum(errs < tol))
+                    top = np.sort(errs)[: int(neigs)]
+                    score = (ncv, -float(np.sum(np.log10(
+                        np.maximum(top, 1e-300)))))
+                    if best is None or score > best[0]:
+                        best = (score, lams, Q, errs)
+                    if ncv >= neigs:
+                        break
+                _, lams, Q, errs = best
+            else:
+                run.advance(m)
+                k_done = m
                 lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma,
                                               gamma)
                 errs = _filtered_errs(lams, Q, ests, resnorm, neigs)
-                t_check += time.perf_counter() - tc
-                ncv = int(np.sum(errs < tol))
-                top = np.sort(errs)[: int(neigs)]
-                score = (ncv,
-                         -float(np.sum(np.log10(np.maximum(top, 1e-300)))))
-                if best is None or score > best[0]:
-                    best = (score, lams, Q, errs)
-                if ncv >= neigs:
-                    break
-            _, lams, Q, errs = best
-        else:
-            run.advance(m)
-            k_done = m
-            lams, Q, ests = _extract_ritz(carry, k_done, m, n, sigma, gamma)
-            errs = _filtered_errs(lams, Q, ests, resnorm, neigs)
-    t_scan = time.perf_counter() - t0
+    t_scan = scan.seconds
 
     idx = np.argsort(errs)
     nconv = int(np.sum(errs < tol)) if np.isfinite(tol) else len(errs)
@@ -543,31 +550,33 @@ def iar_real(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None, v=None,
     if tol is None:
         tol = 1e4 * float(torch.finfo(dt).eps)
 
-    t0 = time.perf_counter()
-    if lu_piv is None:
-        lu_piv = dep_shift_block_lu(nep, sigma, dtype=dt, device=device)
-        if device.type == "cuda":  # time the factorization, not its enqueue
-            torch.cuda.synchronize(device)
-    t_fact = time.perf_counter() - t0
+    with trace.clock("nt.factorize") as fact:
+        if lu_piv is None:
+            lu_piv = dep_shift_block_lu(nep, sigma, dtype=dt, device=device)
+            # time the factorization, not its enqueue
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    t_fact = fact.seconds
 
-    if scaled == "auto":
-        Cre, Cim = dep_coeff_table(nep, sigma, gamma, m, scaled=False)
-        scaled = finite_table_prefix(Cre, Cim, dt) < m
-    else:
-        scaled = bool(scaled)
-    Cre, Cim = dep_coeff_table(nep, sigma, gamma, m, scaled=scaled)
-    theta = 1.0
-    if scaled:
-        theta = auto_theta(Cre, Cim, m, dt)
-        Cre, Cim = apply_theta(Cre, Cim, theta)
+    with trace.span("nt.scan.table"):
+        if scaled == "auto":
+            Cre, Cim = dep_coeff_table(nep, sigma, gamma, m, scaled=False)
+            scaled = finite_table_prefix(Cre, Cim, dt) < m
+        else:
+            scaled = bool(scaled)
+        Cre, Cim = dep_coeff_table(nep, sigma, gamma, m, scaled=scaled)
+        theta = 1.0
+        if scaled:
+            theta = auto_theta(Cre, Cim, m, dt)
+            Cre, Cim = apply_theta(Cre, Cim, theta)
 
-    m_fin = finite_table_prefix(Cre, Cim, dt)
-    if m_fin < m:
-        warnings.warn(
-            f"DEP coefficient table overflows {dt} past derivative order "
-            f"{m_fin}; truncating maxit {m} -> {m_fin}")
-        m = m_fin
-        Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
+        m_fin = finite_table_prefix(Cre, Cim, dt)
+        if m_fin < m:
+            warnings.warn(
+                f"DEP coefficient table overflows {dt} past derivative order "
+                f"{m_fin}; truncating maxit {m} -> {m_fin}")
+            m = m_fin
+            Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
     if v is None:
         v = np.ones(n)
 

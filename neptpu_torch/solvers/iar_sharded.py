@@ -31,12 +31,11 @@ basis block, so every rank returns the same eigenvalues and the full ``Q``.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..config import to_numpy_dtype, to_torch_dtype
+from ..core import trace
 from ..parallel.halo import ShardedDiaBank, shard_vector
 from ..parallel.spike import SpikeBandedSolver, interleave_complex_banded
 from .iar_real import _dep_host_resnorm, _hessenberg, dep_coeff_table
@@ -220,14 +219,15 @@ def dep_scan_inputs(nep, mesh, sigma, gamma, m, v, dt, axis):
     blk = sbank.blk
 
     # distributed shifted factorization (SPIKE on the interleaved real form)
-    t0 = time.perf_counter()
-    cstrips, coffs = dep_sigma_strips(nep, sigma)
-    cstrips = pad_sigma_strips(cstrips, coffs, ndev * blk)
-    rstrips, roffs = interleave_complex_banded(cstrips, coffs)
-    spike = SpikeBandedSolver(rstrips, roffs, mesh, axis=axis,
-                              dtype=to_numpy_dtype(dt))
-    _sync(dev)
-    t_fact = time.perf_counter() - t0
+    with trace.clock("nt.factorize") as fact:
+        with trace.span("nt.factorize.assemble"):
+            cstrips, coffs = dep_sigma_strips(nep, sigma)
+            cstrips = pad_sigma_strips(cstrips, coffs, ndev * blk)
+            rstrips, roffs = interleave_complex_banded(cstrips, coffs)
+        spike = SpikeBandedSolver(rstrips, roffs, mesh, axis=axis,
+                                  dtype=to_numpy_dtype(dt))
+        _sync(dev)
+    t_fact = fact.seconds
 
     Cre, Cim = dep_coeff_table(nep, sigma, gamma, m)
     v = np.asarray(np.ones(nep.n) if v is None else v, dtype=complex)
@@ -266,9 +266,9 @@ def iar_real_sharded(nep, mesh, sigma=0.0, gamma=1.0, maxit=30, neigs=6,
     ndev = int(mesh.size(axis))
 
     inputs, setup = dep_scan_inputs(nep, mesh, sigma, gamma, m, v, dt, axis)
-    t0 = time.perf_counter()
-    carry, graph = sharded_scan(m, inputs, mesh, axis)
-    t_scan = time.perf_counter() - t0
+    with trace.clock("nt.scan") as scan:
+        carry, graph = sharded_scan(m, inputs, mesh, axis)
+    t_scan = scan.seconds
 
     lams, Q = ritz_from_sharded(*carry, m, n, sigma, gamma, mesh, axis)
     take, nconv, errs = select_converged(lams, Q, _dep_host_resnorm(nep),

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..core import trace
+
 __all__ = ["spmf_fun_derivs", "newton_refine", "resinv_refine"]
 
 
@@ -109,6 +111,7 @@ def _host_shift_lus(csr, fv, sig_f):
                 T = A.astype(complex) * wi
                 M = T if M is None else M + T
         lus[j] = spla.splu(M.tocsc())
+        trace.count("nt.refine.factorizations")
     return lus
 
 
@@ -173,6 +176,21 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
     factors are the same).  Returns ``(lams, Q, errs)``, and the batch
     solver of the first pass as a fourth item with ``return_solver=True``
     (None where the pairs went in chunks or there were none)."""
+    with trace.span("nt.refine"):
+        return _newton_refine(
+            mats, fv, lams, Q, nsweeps=nsweeps, tol=tol,
+            errmeasure=errmeasure, dtype=dtype, p=p, bsolver=bsolver,
+            plan=plan, ir=ir, shift_rel=shift_rel,
+            return_solver=return_solver, max_batch=max_batch,
+            backend=backend, target_distinct=target_distinct, device=device,
+            stats=stats, _second_pass=_second_pass)
+
+
+def _newton_refine(mats, fv, lams, Q, *, nsweeps, tol, errmeasure, dtype, p,
+                   bsolver, plan, ir, shift_rel, return_solver, max_batch,
+                   backend, target_distinct, device, stats, _second_pass):
+    """:func:`newton_refine` inside its span (the chunks and the straggler
+    passes call it again)."""
     lams = np.array(lams, dtype=complex, copy=True)
     Q = np.array(Q, dtype=complex, copy=True)
     k = len(lams)
@@ -187,7 +205,8 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
         from ..ops.partitioned import ShiftPlan
 
         if plan is None:
-            plan = ShiftPlan(mats, fv)
+            with trace.span("nt.refine.plan"):
+                plan = ShiftPlan(mats, fv)
         backend = "chip" if (plan.ok and 2 * plan.n > 2e5) else "host"
     if backend == "host":
         # host sweeps are cheap (k SpMVs + triangular solves); weakly
@@ -204,7 +223,8 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
         if dtype is None:
             dtype = torch.float32
         if plan is None and bsolver is None:
-            plan = ShiftPlan(mats, fv)
+            with trace.span("nt.refine.plan"):
+                plan = ShiftPlan(mats, fv)
     # memory-aware chunking: each chunk gets its OWN factorization (built,
     # used for all sweeps, freed)
     if backend == "chip" and bsolver is None and not _second_pass:
@@ -218,30 +238,36 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
             errs = np.zeros(k)
             for s0 in range(0, k, max_batch):
                 sl = slice(s0, min(s0 + max_batch, k))
-                lams[sl], Q[:, sl], errs[sl] = newton_refine(
+                lams[sl], Q[:, sl], errs[sl] = _newton_refine(
                     mats, fv, lams[sl], Q[:, sl], nsweeps=nsweeps, tol=tol,
-                    errmeasure=errmeasure, dtype=dtype, p=p, plan=plan,
-                    ir=ir, shift_rel=shift_rel, max_batch=max_batch,
-                    backend="chip", device=device, stats=stats)
+                    errmeasure=errmeasure, dtype=dtype, p=p, bsolver=None,
+                    plan=plan, ir=ir, shift_rel=shift_rel,
+                    return_solver=False, max_batch=max_batch,
+                    backend="chip", target_distinct=None, device=device,
+                    stats=stats, _second_pass=False)
             return (lams, Q, errs) + ((None,) if return_solver else ())
 
     ops = _TermOps(csr, fv)
     sig_f = lams + 1j * shift_rel * np.maximum(np.abs(lams), 1.0)
     if backend == "host":
         if bsolver is None or not np.array_equal(bsolver.sig, sig_f):
-            bsolver = _HostBatchSolver(_host_shift_lus(csr, fv, sig_f), sig_f)
+            with trace.span("nt.refine.factor"):
+                bsolver = _HostBatchSolver(_host_shift_lus(csr, fv, sig_f),
+                                           sig_f)
         solve = bsolver.solve
     else:
-        if bsolver is None:
-            # factor at OFFSET shifts: an eigenvalue-accurate shift makes
-            # M(lam_j) singular to ~the backward error, and the
-            # float32-seeded refinement diverges once kappa * eps_f32 > 1
-            bsolver = BatchedShiftSMW(mats, fv, sig_f, dtype=dtype, p=p,
-                                      plan=plan, ir=ir, device=device)
-        # one probe solve a shift, a passed solver's too: a shift whose
-        # solve fails goes to a host splu
-        bad = _validate_shifts(ops, sig_f, bsolver)
-        lus = _host_shift_lus(csr, fv, sig_f[bad]) if bad else {}
+        with trace.span("nt.refine.factor"):
+            if bsolver is None:
+                # factor at OFFSET shifts: an eigenvalue-accurate shift makes
+                # M(lam_j) singular to ~the backward error, and the
+                # float32-seeded refinement diverges once kappa * eps_f32 > 1
+                bsolver = BatchedShiftSMW(mats, fv, sig_f, dtype=dtype, p=p,
+                                          plan=plan, ir=ir, device=device)
+                trace.count("nt.refine.factorizations", k)
+            # one probe solve a shift, a passed solver's too: a shift whose
+            # solve fails goes to a host splu
+            bad = _validate_shifts(ops, sig_f, bsolver)
+            lus = _host_shift_lus(csr, fv, sig_f[bad]) if bad else {}
         if stats is not None:
             stats["chip_shifts"] = stats.get("chip_shifts", 0) + k - len(bad)
             stats["host_fallback_shifts"] = (
@@ -258,30 +284,33 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
     err_batch = getattr(errmeasure, "batch", None)
 
     def meas_vec(lams_v, Qm):
-        if err_batch is not None:
-            return np.asarray(err_batch(lams_v, Qm), dtype=float)
-        if errmeasure is not None:
-            return np.array([float(errmeasure(lams_v[j], Qm[:, j]))
-                             for j in range(len(lams_v))])
-        return np.linalg.norm(
-            ops.contract(ops.apply(Qm), ops.weights(lams_v, 1)[:, 0]), axis=0)
+        with trace.span("nt.refine.measure"):
+            if err_batch is not None:
+                return np.asarray(err_batch(lams_v, Qm), dtype=float)
+            if errmeasure is not None:
+                return np.array([float(errmeasure(lams_v[j], Qm[:, j]))
+                                 for j in range(len(lams_v))])
+            return np.linalg.norm(ops.contract(
+                ops.apply(Qm), ops.weights(lams_v, 1)[:, 0]), axis=0)
 
     errs = meas_vec(lams, Q)
     for _ in range(int(nsweeps)):
         if tol is not None and np.all(errs < tol):
             break
-        T = ops.apply(Q)                       # (nt, n, k), one SpMM
-        W = ops.weights(lams, 2)
-        Mq = ops.contract(T, W[:, 0])
-        Mpq = ops.contract(T, W[:, 1])
-        # least-squares eigenvalue update lam = argmin ||M(lam) q||
-        denom = np.einsum("nk,nk->k", np.conj(Mpq), Mpq).real
-        num = np.einsum("nk,nk->k", np.conj(Mpq), Mq)
-        step = np.where(denom > 0, num / np.where(denom > 0, denom, 1.0), 0)
-        cand = lams - step
-        # inverse-iteration RHS at the updated eigenvalues: M'(cand) q
-        Y = solve(ops.contract(T, ops.weights(cand, 2)[:, 1]))
-        newQ = Y / np.linalg.norm(Y, axis=0, keepdims=True)
+        with trace.span("nt.refine.sweep"):
+            T = ops.apply(Q)                       # (nt, n, k), one SpMM
+            W = ops.weights(lams, 2)
+            Mq = ops.contract(T, W[:, 0])
+            Mpq = ops.contract(T, W[:, 1])
+            # least-squares eigenvalue update lam = argmin ||M(lam) q||
+            denom = np.einsum("nk,nk->k", np.conj(Mpq), Mpq).real
+            num = np.einsum("nk,nk->k", np.conj(Mpq), Mq)
+            step = np.where(denom > 0,
+                            num / np.where(denom > 0, denom, 1.0), 0)
+            cand = lams - step
+            # inverse-iteration RHS at the updated eigenvalues: M'(cand) q
+            Y = solve(ops.contract(T, ops.weights(cand, 2)[:, 1]))
+            newQ = Y / np.linalg.norm(Y, axis=0, keepdims=True)
         # accept the first improving combo of (new lam, new q) /
         # (old lam, new q) / (new lam, old q), per pair; never worse
         pend = np.arange(k)
@@ -315,11 +344,12 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
     while (tol is not None and not _second_pass and passes < max_passes
            and np.any(errs >= tol) and not _distinct_done()):
         bad_pairs = np.nonzero(errs >= tol)[0]
-        lb, Qb, eb = newton_refine(
+        lb, Qb, eb = _newton_refine(
             mats, fv, lams[bad_pairs], Q[:, bad_pairs], nsweeps=nsweeps,
-            tol=tol, errmeasure=errmeasure, dtype=dtype, p=p, plan=plan,
-            ir=ir, shift_rel=shift_rel, backend=backend, device=device,
-            stats=stats, _second_pass=True)
+            tol=tol, errmeasure=errmeasure, dtype=dtype, p=p, bsolver=None,
+            plan=plan, ir=ir, shift_rel=shift_rel, return_solver=False,
+            max_batch=None, backend=backend, target_distinct=None,
+            device=device, stats=stats, _second_pass=True)
         improved = False
         for t, j in enumerate(bad_pairs):
             if eb[t] < errs[j]:

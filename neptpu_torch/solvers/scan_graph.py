@@ -38,6 +38,7 @@ import time
 
 import torch
 
+from ..core import trace
 from ..ops.dia_kernel import DIA_SPMV
 
 __all__ = ["StepGraph"]
@@ -138,16 +139,29 @@ class StepGraph:
         self.capture_seconds = time.perf_counter() - t0
 
     def advance(self, nsteps):
-        """Run ``nsteps`` steps."""
-        for _ in range(int(nsteps)):
-            if self.graphed and self.eager_steps and self.graph is None:
-                self._capture()
-            if self.graph is None:
+        """Run ``nsteps`` steps: on the card the first eagerly and the
+        capture (span ``nt.scan.capture``), then replays (span
+        ``nt.scan.steps`` with the device's time of each run of them,
+        counter ``nt.scan.replays``)."""
+        nsteps = int(nsteps)
+        if not self.graphed:
+            for _ in range(nsteps):
                 self._eager()
-            else:
-                self.graph.replay()
-                DIA_SPMV.add_counts(self.launches)
-                self.replays += 1
+            return
+        if nsteps and self.graph is None:
+            with trace.span("nt.scan.capture"):
+                if not self.eager_steps:
+                    self._eager()
+                    nsteps -= 1
+                if nsteps:
+                    self._capture()
+        if nsteps:
+            with trace.span("nt.scan.steps", device=True):
+                for _ in range(nsteps):
+                    self.graph.replay()
+                    DIA_SPMV.add_counts(self.launches)
+            self.replays += nsteps
+            trace.count("nt.scan.replays", nsteps)
 
     def wait(self):
         """Wait for the steps run so far: on the card a replay returns

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
+from ..core import trace
 from ..ops.mixed import make_mixed_bank
 from .iar_real import (DeflationOps, apply_theta, auto_theta,
                        block_assemble_lu, run_iar_real)
@@ -134,11 +135,13 @@ def spmf_shift_block_lu(mats, fv, sigma, dtype=torch.float32, device=None):
     import scipy.sparse as sp
 
     device = resolve_device(device)
-    w = spmf_fun_scalars(fv, sigma)
-    M0 = None
-    for wi, A in zip(w, mats):
-        T = (A * wi) if sp.issparse(A) else sp.csr_matrix(np.asarray(A) * wi)
-        M0 = T if M0 is None else M0 + T
+    with trace.span("nt.factorize.assemble"):
+        w = spmf_fun_scalars(fv, sigma)
+        M0 = None
+        for wi, A in zip(w, mats):
+            T = (A * wi) if sp.issparse(A) else sp.csr_matrix(
+                np.asarray(A) * wi)
+            M0 = T if M0 is None else M0 + T
     return block_assemble_lu(M0, dtype, device)
 
 
@@ -191,41 +194,42 @@ def iar_real_spmf(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None,
     if bank is None:
         t0 = time.perf_counter()
         bank = make_mixed_bank(mats, dtype=to_numpy_dtype(dt), device=device)
+        _sync(device)  # time the upload, not its enqueue
         t_bank = time.perf_counter() - t0
 
-    t0 = time.perf_counter()
-    if lu_piv is None:
-        from ..ops.partitioned import build_spmf_shift_solver
+    with trace.clock("nt.factorize") as fact:
+        if lu_piv is None:
+            from ..ops.partitioned import build_spmf_shift_solver
 
-        lu_piv = build_spmf_shift_solver(mats, fv, sigma, dtype=dt,
-                                         device=device)
-        if lu_piv is None:  # bulk neither banded nor arrow: dense block LU
-            lu_piv = spmf_shift_block_lu(mats, fv, sigma, dtype=dt,
-                                         device=device)
-        _sync(device)
-    t_fact = time.perf_counter() - t0
+            lu_piv = build_spmf_shift_solver(mats, fv, sigma, dtype=dt,
+                                             device=device)
+            if lu_piv is None:  # bulk neither banded nor arrow: dense LU
+                lu_piv = spmf_shift_block_lu(mats, fv, sigma, dtype=dt,
+                                             device=device)
+            _sync(device)
+    t_fact = fact.seconds
 
     # 'auto': classic Taylor space unless its table overflows ``dt`` before
     # ``maxit`` — then the theta-scaled space
-    t0 = time.perf_counter()
-    if scaled == "auto":
-        Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m, scaled=False)
-        scaled = finite_table_prefix(Cre, Cim, dt) < m
-    else:
-        scaled = bool(scaled)
-    Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m, scaled=scaled)
-    theta = 1.0
-    if scaled:
-        theta = auto_theta(Cre, Cim, m, dt)
-        Cre, Cim = apply_theta(Cre, Cim, theta)
-    m_fin = finite_table_prefix(Cre, Cim, dt)
-    if m_fin < m:
-        warnings.warn(
-            f"coefficient table overflows {dt} past derivative order "
-            f"{m_fin}; truncating maxit {m} -> {m_fin}")
-        m = m_fin
-        Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
-    t_table = time.perf_counter() - t0
+    with trace.clock("nt.scan.table") as table:
+        if scaled == "auto":
+            Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m, scaled=False)
+            scaled = finite_table_prefix(Cre, Cim, dt) < m
+        else:
+            scaled = bool(scaled)
+        Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m, scaled=scaled)
+        theta = 1.0
+        if scaled:
+            theta = auto_theta(Cre, Cim, m, dt)
+            Cre, Cim = apply_theta(Cre, Cim, theta)
+        m_fin = finite_table_prefix(Cre, Cim, dt)
+        if m_fin < m:
+            warnings.warn(
+                f"coefficient table overflows {dt} past derivative order "
+                f"{m_fin}; truncating maxit {m} -> {m_fin}")
+            m = m_fin
+            Cre, Cim = Cre[:, : m + 1], Cim[:, : m + 1]
+    t_table = table.seconds
     if v is None:
         v = np.ones(n)
 
@@ -263,6 +267,7 @@ def iar_real_spmf_multishift(nep, sigmas, gamma=1.0, maxit=30, neigs=6,
     dt = to_torch_dtype(dtype)
     t0 = time.perf_counter()
     bank = make_mixed_bank(mats, dtype=to_numpy_dtype(dt), device=device)
+    _sync(device)  # time the upload, not its enqueue
     t_bank = time.perf_counter() - t0
     meas = errmeasure if errmeasure is not None else _spmf_host_resnorm(
         mats, fv)
@@ -337,12 +342,14 @@ def iar_real_spmf_deflated(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6,
         restarts = int(neigs) + 2
     bank = make_mixed_bank(mats, dtype=to_numpy_dtype(dt), device=device)
 
-    t0 = time.perf_counter()
-    solver = build_spmf_shift_solver(mats, fv, sigma, dtype=dt, device=device)
-    if solver is None:
-        solver = spmf_shift_block_lu(mats, fv, sigma, dtype=dt, device=device)
-    _sync(device)
-    t_fact = time.perf_counter() - t0
+    with trace.clock("nt.factorize") as fact:
+        solver = build_spmf_shift_solver(mats, fv, sigma, dtype=dt,
+                                         device=device)
+        if solver is None:
+            solver = spmf_shift_block_lu(mats, fv, sigma, dtype=dt,
+                                         device=device)
+        _sync(device)
+    t_fact = fact.seconds
 
     # the deflated scan runs in the theta-scaled Taylor space only
     Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m, scaled=True)

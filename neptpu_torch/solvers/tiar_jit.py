@@ -17,12 +17,11 @@ with host Ritz peeks for an early exit.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..config import real_of, to_numpy_dtype, to_torch_dtype
+from ..core import trace
 from .common import solver_device
 from .scan_graph import StepGraph
 from .spmf_real import _sync
@@ -140,35 +139,37 @@ def _run(bank, m, C, id_coeff, v, lu_piv, cdt, *, sigma, gamma, neigs, tol,
     lu = lu.to(cdt)
     v0 = torch.as_tensor(np.asarray(v, dtype=complex), device=device).to(cdt)
     step = _step_fn(bank, m, C, gamma_id, lu, piv, cdt)
-    t0 = time.perf_counter()
     t_check = 0.0
-    carry = _init(m, v0, cdt)
-    k = torch.ones((), dtype=torch.int64, device=device)
 
     def peek(k_done):
-        lams, Q = _extract(carry, k_done, n, sigma, gamma)
-        return lams, Q, np.array([resnorm(lams[s], Q[:, s])
-                                  for s in range(len(lams))])
+        with trace.span("nt.scan.check.extract"):
+            lams, Q = _extract(carry, k_done, n, sigma, gamma)
+        with trace.span("nt.scan.check.measure"):
+            return lams, Q, np.array([resnorm(lams[s], Q[:, s])
+                                      for s in range(len(lams))])
 
-    with StepGraph(step, carry, k) as run:
-        if check_error_every and np.isfinite(tol):
-            chunk = int(check_error_every)
-            k_done = 0
-            while k_done < m:
-                steps = min(chunk, m - k_done)
-                run.advance(steps)
-                k_done += steps
-                run.wait()  # the checks' time is the host's alone
-                tc = time.perf_counter()
+    with trace.clock("nt.scan") as scan:
+        carry = _init(m, v0, cdt)
+        k = torch.ones((), dtype=torch.int64, device=device)
+        with StepGraph(step, carry, k) as run:
+            if check_error_every and np.isfinite(tol):
+                chunk = int(check_error_every)
+                k_done = 0
+                while k_done < m:
+                    steps = min(chunk, m - k_done)
+                    run.advance(steps)
+                    k_done += steps
+                    run.wait()  # the checks' time is the host's alone
+                    with trace.clock("nt.scan.check") as check:
+                        lams, Q, errs = peek(k_done)
+                    t_check += check.seconds
+                    if int(np.sum(errs < tol)) >= neigs:
+                        break
+            else:
+                run.advance(m)
+                k_done = m
                 lams, Q, errs = peek(k_done)
-                t_check += time.perf_counter() - tc
-                if int(np.sum(errs < tol)) >= neigs:
-                    break
-        else:
-            run.advance(m)
-            k_done = m
-            lams, Q, errs = peek(k_done)
-    t_scan = time.perf_counter() - t0
+    t_scan = scan.seconds
     idx = np.argsort(errs)
     nconv = int(np.sum(errs < tol)) if np.isfinite(tol) else len(errs)
     take = idx[: min(neigs, nconv)]
@@ -196,11 +197,13 @@ def _complex_shift_lu(mats, fv, sigma, cdt, device=None):
 
     from .spmf_real import spmf_fun_scalars
 
-    w = spmf_fun_scalars(fv, sigma)
-    M0 = None
-    for wi, A in zip(w, mats):
-        T = (A * wi) if sp.issparse(A) else sp.csr_matrix(np.asarray(A) * wi)
-        M0 = T if M0 is None else M0 + T
+    with trace.span("nt.factorize.assemble"):
+        w = spmf_fun_scalars(fv, sigma)
+        M0 = None
+        for wi, A in zip(w, mats):
+            T = (A * wi) if sp.issparse(A) else sp.csr_matrix(
+                np.asarray(A) * wi)
+            M0 = T if M0 is None else M0 + T
     return _dense_lu(M0, cdt, device)
 
 
@@ -222,16 +225,17 @@ def tiar_jitted(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None,
     if tol is None:
         tol = 1e4 * float(torch.finfo(cdt).eps)
     sigma_c = complex(sigma)
-    t0 = time.perf_counter()
-    M0 = sp.coo_matrix(
-        (np.full(n, -sigma_c), (np.arange(n), np.arange(n))),
-        shape=(n, n)).tocsr()
-    for t, A in zip(np.asarray(nep.tauv, dtype=float),
-                    nep.bank.host_csr_terms()):
-        M0 = M0 + np.exp(-t * sigma_c) * A
-    lu_piv = _dense_lu(M0, cdt, device)
-    _sync(device)
-    t_fact = time.perf_counter() - t0
+    with trace.clock("nt.factorize") as fact:
+        with trace.span("nt.factorize.assemble"):
+            M0 = sp.coo_matrix(
+                (np.full(n, -sigma_c), (np.arange(n), np.arange(n))),
+                shape=(n, n)).tocsr()
+            for t, A in zip(np.asarray(nep.tauv, dtype=float),
+                            nep.bank.host_csr_terms()):
+                M0 = M0 + np.exp(-t * sigma_c) * A
+        lu_piv = _dense_lu(M0, cdt, device)
+        _sync(device)
+    t_fact = fact.seconds
     Cre, Cim = dep_coeff_table(nep, sigma, gamma, m)
     C = Cre + 1j * Cim
     if v is None:
@@ -267,10 +271,10 @@ def tiar_jitted_spmf(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None,
         tol = 1e4 * float(torch.finfo(cdt).eps)
     real = torch.float64 if cdt == torch.complex128 else torch.float32
     bank = make_mixed_bank(mats, dtype=to_numpy_dtype(real), device=device)
-    t0 = time.perf_counter()
-    lu_piv = _complex_shift_lu(mats, fv, sigma, cdt, device)
-    _sync(device)
-    t_fact = time.perf_counter() - t0
+    with trace.clock("nt.factorize") as fact:
+        lu_piv = _complex_shift_lu(mats, fv, sigma, cdt, device)
+        _sync(device)
+    t_fact = fact.seconds
     Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m)
     C = Cre + 1j * Cim
     if v is None:

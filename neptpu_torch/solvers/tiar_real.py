@@ -27,12 +27,11 @@ the CPU.
 """
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
 from ..config import resolve_device, to_numpy_dtype, to_torch_dtype
+from ..core import trace
 from .common import solver_device
 from ..ops.mixed import make_mixed_bank
 from .iar_real import (_dep_host_resnorm, _hessenberg, as_pair_solver,
@@ -230,9 +229,8 @@ def run_tiar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
     def all_errs(lams, Q):
         return np.array([resnorm(lams[s], Q[:, s]) for s in range(len(lams))])
 
-    t0 = time.perf_counter()
     t_check = 0.0
-    with StepGraph(step, carry, k) as run:
+    with trace.clock("nt.scan") as scan, StepGraph(step, carry, k) as run:
         if check_error_every and np.isfinite(tol):
             chunk = int(check_error_every)
             k_done = 0
@@ -241,10 +239,13 @@ def run_tiar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
                 run.advance(steps)
                 k_done += steps
                 run.wait()  # the checks' time is the host's alone
-                tc = time.perf_counter()
-                lams, Q = _tiar_extract(carry, k_done, n, sigma, gamma)
-                errs = all_errs(lams, Q)
-                t_check += time.perf_counter() - tc
+                with trace.clock("nt.scan.check") as check:
+                    with trace.span("nt.scan.check.extract"):
+                        lams, Q = _tiar_extract(carry, k_done, n, sigma,
+                                                gamma)
+                    with trace.span("nt.scan.check.measure"):
+                        errs = all_errs(lams, Q)
+                t_check += check.seconds
                 if int(np.sum(errs < tol)) >= neigs:
                     break
         else:
@@ -252,7 +253,7 @@ def run_tiar_real(bank, m, Cre, Cim, id_coeff, v, lu_piv, dt, *, sigma, gamma,
             k_done = m
             lams, Q = _tiar_extract(carry, k_done, n, sigma, gamma)
             errs = all_errs(lams, Q)
-    t_scan = time.perf_counter() - t0
+    t_scan = scan.seconds
 
     idx = np.argsort(errs)
     nconv = int(np.sum(errs < tol)) if np.isfinite(tol) else len(errs)
@@ -276,11 +277,11 @@ def tiar_real(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None, v=None,
     dt = to_torch_dtype(dtype)
     if tol is None:
         tol = 1e4 * float(torch.finfo(dt).eps)
-    t0 = time.perf_counter()
-    if lu_piv is None:
-        lu_piv = dep_shift_block_lu(nep, sigma, dtype=dt, device=device)
-        _sync(device)
-    t_fact = time.perf_counter() - t0
+    with trace.clock("nt.factorize") as fact:
+        if lu_piv is None:
+            lu_piv = dep_shift_block_lu(nep, sigma, dtype=dt, device=device)
+            _sync(device)
+    t_fact = fact.seconds
     Cre, Cim = dep_coeff_table(nep, sigma, gamma, m)
     if v is None:
         v = np.ones(n)
@@ -311,11 +312,12 @@ def tiar_real_spmf(nep, sigma=0.0, gamma=1.0, maxit=30, neigs=6, tol=None,
         tol = 1e4 * float(torch.finfo(dt).eps)
     if bank is None:
         bank = make_mixed_bank(mats, dtype=to_numpy_dtype(dt), device=device)
-    t0 = time.perf_counter()
-    if lu_piv is None:
-        lu_piv = spmf_shift_block_lu(mats, fv, sigma, dtype=dt, device=device)
-        _sync(device)
-    t_fact = time.perf_counter() - t0
+    with trace.clock("nt.factorize") as fact:
+        if lu_piv is None:
+            lu_piv = spmf_shift_block_lu(mats, fv, sigma, dtype=dt,
+                                         device=device)
+            _sync(device)
+    t_fact = fact.seconds
     Cre, Cim = spmf_coeff_table(fv, sigma, gamma, m)
     if v is None:
         v = np.ones(n)

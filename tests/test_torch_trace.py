@@ -1,0 +1,261 @@
+"""The port's spans and counters (``neptpu_torch.trace``): the no-op when
+nobody traces, nesting and self time, the spans in the profiler's trace,
+the spans the solvers record beside their ``info`` times, and the counter of
+the refinement's factorizations.  This file imports no JAX; its ``cuda``
+case runs on the card with
+
+    python -m pytest --noconftest tests/test_torch_trace.py -m cuda -q
+"""
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from torch_port_helpers import CPU, SMALL_GAMMA, SMALL_SIGMA, small_gun_like
+
+import neptpu_torch as nt
+from neptpu_torch import trace
+from neptpu_torch.solvers.spmf_real import collect_spmf_terms
+
+# the scan entries' ``info`` as it was before the spans (``iar_real``, and
+# ``iar_real_spmf`` with the bank, table and theta keys beside)
+INFO_KEYS = {"t_scan", "t_check", "nconv", "k_done", "errs", "graph",
+             "hessenberg", "t_factorize", "scaled", "theta"}
+SPMF_INFO_KEYS = INFO_KEYS | {"t_bank", "t_table"}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: CUDA events time the card")
+    return torch.device("cuda")
+
+
+@pytest.fixture
+def tiny_dep():
+    """The 24 x 24 delay problem of the benchmark's CPU cells, with the
+    scan's arguments of its traffic (maxit 30, 4 pairs, checks every
+    10 steps), in float64 to an absolute residual of 1e-8."""
+    nep = nt.nep_gallery("dep_symm_double", 24, device=CPU)
+    kw = dict(sigma=-1.0, gamma=1.0, maxit=30, neigs=4, tol=1e-8,
+              dtype=torch.float64, check_error_every=10, return_info=True,
+              device=CPU)
+    return nep, kw
+
+
+def test_nothing_traced_gives_the_shared_noop():
+    before = (trace.profiled().totals(), trace.profiled().counters())
+    first = trace.span("nt.test.a")
+    assert first is trace.span("nt.test.b", device=True)
+    with first as sp:
+        trace.count("nt.test.calls")
+    assert sp.seconds == 0.0
+    assert (trace.profiled().totals(), trace.profiled().counters()) == before
+    # a clock reads its time all the same
+    with trace.clock("nt.test.clock") as c:
+        time.sleep(0.002)
+    assert c.seconds >= 0.002
+
+
+def test_nesting_parents_self_time_and_counts():
+    with trace.collect() as col:
+        with trace.span("nt.test.outer"):
+            time.sleep(0.004)
+            with trace.span("nt.test.inner"):
+                time.sleep(0.004)
+                trace.count("nt.test.calls")
+            with trace.span("nt.test.inner"):
+                trace.count("nt.test.calls", 2)
+            time.sleep(0.002)
+        with trace.clock("nt.test.after") as c:
+            pass
+    spans = col.spans()
+    assert [s["name"] for s in spans] == ["nt.test.outer", "nt.test.inner",
+                                          "nt.test.inner", "nt.test.after"]
+    assert [s["parent"] for s in spans] == [None, 0, 0, None]
+    assert all(s["device_ms"] is None for s in spans)
+    tot = col.totals()
+    outer, inner = tot["nt.test.outer"], tot["nt.test.inner"]
+    assert inner["calls"] == 2 and outer["calls"] == 1
+    assert outer["self_seconds"] == pytest.approx(
+        outer["seconds"] - inner["seconds"], abs=1e-9)
+    assert outer["self_seconds"] >= 0.006 and inner["seconds"] >= 0.004
+    assert inner["self_seconds"] == pytest.approx(inner["seconds"])
+    assert tot["nt.test.after"]["seconds"] == pytest.approx(c.seconds)
+    assert col.counters() == {"nt.test.calls": 3}
+    # a block outside the request records nothing into it
+    with trace.span("nt.test.later"):
+        pass
+    assert len(col.spans()) == 4
+
+
+def test_spans_nest_in_the_profilers_chrome_trace(tmp_path, tiny_dep):
+    from torch.profiler import ProfilerActivity, profile
+
+    nep, kw = tiny_dep
+    trace.profiled().clear()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with torch.profiler.record_function("caller"):
+            nt.iar_real(nep, **kw)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    with open(path) as fh:
+        events = json.load(fh)["traceEvents"]
+    user = [e for e in events if e.get("cat") == "user_annotation"]
+    caller = next(e for e in user if e["name"] == "caller")
+    names = {e["name"] for e in user}
+    assert {"nt.factorize", "nt.factorize.assemble", "nt.scan.table",
+            "nt.scan", "nt.scan.check", "nt.scan.check.extract",
+            "nt.scan.check.measure"} <= names
+    for e in user:
+        if e["name"].startswith("nt."):
+            assert caller["ts"] <= e["ts"]
+            assert e["ts"] + e["dur"] <= caller["ts"] + caller["dur"]
+    # outside any request, the profiled spans went to the profile collector
+    tot = trace.profiled().totals()
+    assert tot["nt.scan"]["calls"] == 1
+    assert tot["nt.scan.check"]["calls"] == tot["nt.scan.check.measure"][
+        "calls"] >= 1
+    trace.profiled().clear()
+    with trace.span("nt.test.after"):  # the profiler stopped
+        pass
+    assert trace.profiled().totals() == {}
+
+
+def _scan_spans_hold_info(col, info):
+    tot = col.totals()
+    assert tot["nt.scan"]["seconds"] == pytest.approx(info["t_scan"])
+    assert tot["nt.factorize"]["seconds"] == pytest.approx(
+        info["t_factorize"])
+    assert tot["nt.scan.check"]["seconds"] == pytest.approx(info["t_check"])
+    measure = tot["nt.scan.check.measure"]["seconds"]
+    assert info["t_scan"] >= info["t_check"] >= measure > 0.0
+    assert tot["nt.factorize.assemble"]["calls"] == 1
+    assert tot["nt.scan.check"]["calls"] == info["k_done"] // 10
+    spans = col.spans()
+    index = {s["name"]: i for i, s in enumerate(spans)}
+    for child, parent in (("nt.factorize.assemble", "nt.factorize"),
+                          ("nt.scan.check", "nt.scan"),
+                          ("nt.scan.check.measure", "nt.scan.check")):
+        assert spans[index[child]]["parent"] == index[parent]
+
+
+def test_iar_real_spans_beside_its_info(tiny_dep):
+    nep, kw = tiny_dep
+    _, _, plain = nt.iar_real(nep, **kw)
+    with trace.collect() as col:
+        lams, _, info = nt.iar_real(nep, **kw)
+    assert set(plain) == set(info) == INFO_KEYS
+    assert len(lams) == 4
+    _scan_spans_hold_info(col, info)
+    assert col.totals()["nt.scan.table"]["calls"] == 1
+
+
+def test_iar_real_spmf_spans_beside_its_info(tiny_dep):
+    nep, kw = tiny_dep
+    with trace.collect() as col:
+        lams, _, info = nt.iar_real_spmf(nep, **kw)
+    assert set(info) == SPMF_INFO_KEYS
+    assert len(lams) == 4
+    _scan_spans_hold_info(col, info)
+    assert col.totals()["nt.scan.table"]["seconds"] == pytest.approx(
+        info["t_table"])
+    # on the CPU no step is captured or replayed
+    assert "nt.scan.capture" not in col.totals()
+    assert "nt.scan.replays" not in col.counters()
+
+
+def _small_gun_pairs():
+    """Pairs of the small gun-structured problem from a float64 scan near
+    its bench point, for the refinement to polish."""
+    from neptpu_torch.models.gallery.nlevp import _gun_from_matrices
+
+    nep = _gun_from_matrices(*small_gun_like(nx=24), device=CPU)
+    mats, fv = collect_spmf_terms(nep)
+    lams, Q = nt.iar_real_spmf(nep, sigma=SMALL_SIGMA, gamma=SMALL_GAMMA,
+                               maxit=24, neigs=4, tol=1e-3,
+                               dtype=torch.float64, device=CPU)
+    return mats, fv, lams, Q
+
+
+def test_host_refinement_counts_a_factorization_a_splu(monkeypatch):
+    import scipy.sparse.linalg as spla
+
+    mats, fv, lams, Q = _small_gun_pairs()
+    calls = []
+    splu = spla.splu
+
+    def counted(A, *args, **kwargs):
+        calls.append(A.shape)
+        return splu(A, *args, **kwargs)
+
+    monkeypatch.setattr(spla, "splu", counted)
+    with trace.collect() as col:
+        _, _, errs = nt.newton_refine(mats, fv, lams, Q, nsweeps=3,
+                                      tol=1e-12, backend="host")
+    tot = col.totals()
+    assert calls and col.counters()["nt.refine.factorizations"] == len(calls)
+    # the outermost call alone: the straggler passes sit inside it
+    assert tot["nt.refine"]["calls"] == 1
+    assert tot["nt.refine.factor"]["calls"] >= 1
+    assert tot["nt.refine.sweep"]["calls"] >= 1
+    assert tot["nt.refine.measure"]["calls"] >= 1
+    assert tot["nt.refine"]["seconds"] >= tot["nt.refine.factor"]["seconds"]
+
+
+def test_chip_backend_spans_replace_its_timings():
+    mats, fv, lams, Q = _small_gun_pairs()
+    k = len(lams)
+    with trace.collect() as col:
+        _, _, errs, bsolver = nt.newton_refine(
+            mats, fv, lams, Q, nsweeps=2, tol=1e-12, ir=3, backend="chip",
+            return_solver=True, device=CPU)
+    tot = col.totals()
+    assert not hasattr(bsolver, "timings")
+    for name in ("nt.refine.plan", "nt.refine.chip.assemble",
+                 "nt.refine.chip.factor", "nt.refine.chip.smw"):
+        assert tot[name]["calls"] >= 1
+    assert "device_ms" not in tot["nt.refine.chip.factor"]  # the CPU
+    assert col.counters()["nt.refine.factorizations"] >= k
+    spans = col.spans()
+    for s in spans:
+        if s["name"].startswith("nt.refine.chip."):
+            assert spans[s["parent"]]["name"] == "nt.refine.factor"
+
+
+def test_load_totals_hold_the_import():
+    load = trace.load_totals()
+    assert load["nt.load.import"]["calls"] == 1
+    assert load["nt.load.import"]["seconds"] > 0.0
+
+
+@pytest.mark.cuda
+def test_replayed_steps_resolve_device_time_without_a_synchronize(
+        cuda, monkeypatch):
+    nep = nt.nep_gallery("dep_symm_double", 24, device=cuda)
+    kw = dict(sigma=-1.0, maxit=30, neigs=4, tol=1e-6, check_error_every=10,
+              return_info=True, device=cuda)
+    nt.iar_real(nep, **kw)  # the first scan sets up cuBLAS and the library
+    syncs = []
+    real = torch.cuda.synchronize
+
+    def counted(*args, **kwargs):
+        syncs.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    _, _, plain = nt.iar_real(nep, **kw)
+    untraced = len(syncs)
+    syncs.clear()
+    with trace.collect() as col:
+        _, _, info = nt.iar_real(nep, **kw)
+        traced = len(syncs)
+    assert traced == untraced
+    tot = col.totals()
+    replays = col.counters()["nt.scan.replays"]
+    assert replays == info["graph"]["replays"] == info["k_done"] - 1
+    assert tot["nt.scan.capture"]["calls"] == 1
+    assert tot["nt.scan.steps"]["device_ms"] > 0.0
+    assert tot["nt.scan.steps"]["calls"] == info["k_done"] // 10
