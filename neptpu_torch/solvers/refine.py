@@ -4,12 +4,15 @@ reference-class backward errors.
 The float32 scan converges to backward errors around the float32 floor
 (~1e-6).  :func:`newton_refine` closes the gap to 1e-9..1e-11: residuals and
 eigenvalue updates run in complex128 on the host, the per-pair shifted solves
-either on the host (scipy ``splu`` of M at a slightly offset shift per pair —
-the ``host`` backend) or on the device through one batched per-shift
-factorization (:class:`neptpu_torch.ops.partitioned.BatchedShiftSMW`:
-float32 SPIKE + SMW factors with float64 iterative refinement — the ``chip``
-backend).  :func:`resinv_refine` polishes against the scan's own frozen
-factorization instead, with no new one.
+either on the host (the ``host`` backend: an exact complex128 scipy ``splu``
+of M at a slightly offset shift per pair, M assembled over the terms' union
+pattern, and SuperLU's symmetric minimum-degree ordering with threshold
+pivoting where that pattern is structurally symmetric, its default COLAMD
+and partial pivoting elsewhere) or on the device through one batched
+per-shift factorization (:class:`neptpu_torch.ops.partitioned.
+BatchedShiftSMW`: float32 SPIKE + SMW factors with float64 iterative
+refinement — the ``chip`` backend).  :func:`resinv_refine` polishes against
+the scan's own frozen factorization instead, with no new one.
 """
 from __future__ import annotations
 
@@ -87,31 +90,86 @@ def _refine_batch_limit(plan, p=8, budget_bytes=6.0e9):
     return max(1, int(budget_bytes // per))
 
 
+# SuperLU's diagonal pivot threshold where the terms' union pattern is
+# structurally symmetric.  There it orders by minimum degree on A + A^T and
+# keeps a diagonal pivot of at least this share of its column's largest
+# entry (UMFPACK's symmetric strategy defaults to the same 0.001).  At
+# gun_like (n = 9956, one CPU core, one BLAS thread) that halves the
+# factors: on ten shifts of its band 367k entries in L and U against COLAMD
+# with partial pivoting's 821k, 37-50 ms a factorization against 75-92 ms,
+# at the same solve residual (4e-14).  A larger threshold lets pivots leave
+# the diagonal where the refinement factors, 1e-8 off an eigenvalue: there
+# 0.01 leaves it at 1.6-1.8 % of the columns and stores 608k entries
+# against 0.001's 383k-391k, and 0.1 stores 3.0M-3.4M.
+SYMMETRIC_PIVOT_THRESH = 0.001
+
+
+class _UnionTerms:
+    """The terms over the union of their patterns, in CSC order: ``terms``,
+    a sparse (union entries, terms) matrix that holds the terms' nonzeros,
+    so that ``matrix(w)``, the CSC matrix of ``sum_i w[i] A_i``, takes its
+    data from one sparse product ``terms @ w`` over fixed indices - work in
+    the terms' nonzeros, and no BLAS call.  ``symmetric``: the union
+    pattern equals its transpose's."""
+
+    def __init__(self, csr):
+        import scipy.sparse as sp
+
+        self.shape = csr[0].shape
+        n = self.shape[0]
+        keys, data, term = [], [], []
+        for t, A in enumerate(csr):
+            C = A.copy()
+            C.eliminate_zeros()
+            C = C.tocsc()
+            C.sum_duplicates()
+            col = np.repeat(np.arange(n, dtype=np.int64), np.diff(C.indptr))
+            keys.append(col * n + C.indices)
+            data.append(C.data)
+            term.append(np.full(C.nnz, t, dtype=np.int32))
+        key = np.concatenate(keys)
+        order = np.argsort(key, kind="stable")
+        key = key[order]
+        starts = np.flatnonzero(np.r_[True, key[1:] != key[:-1]])
+        self.terms = sp.csr_matrix(
+            (np.concatenate(data)[order], np.concatenate(term)[order],
+             np.r_[starts, key.size]), shape=(starts.size, len(csr)))
+        key_u = key[starts]
+        row, col = key_u % n, key_u // n
+        self.indices = row.astype(np.int32)
+        self.indptr = np.searchsorted(col, np.arange(n + 1)).astype(np.int32)
+        self.symmetric = np.array_equal(np.sort(row * n + col), key_u)
+
+    def matrix(self, w):
+        import scipy.sparse as sp
+
+        return sp.csc_matrix(
+            (self.terms @ np.asarray(w, dtype=complex), self.indices,
+             self.indptr), shape=self.shape)
+
+
 def _host_shift_lus(csr, fv, sig_f):
-    """Exact scipy ``splu`` of M(sig) per shift.  Aligned banks give every
-    term one pattern, so the weighted sum is one (nt,) @ (nt, nnz) GEMV."""
-    import scipy.sparse as sp
+    """An exact complex128 scipy ``splu`` of M(sig) at each shift, M(sig)
+    assembled over the terms' union pattern (:class:`_UnionTerms`).  Where
+    that pattern is structurally symmetric, SuperLU orders by minimum degree
+    on A + A^T with threshold pivoting (``SYMMETRIC_PIVOT_THRESH``), its
+    mode for such matrices; elsewhere it keeps its defaults (COLAMD, partial
+    pivoting).  Counts each factorization and the entries of L and U that
+    SuperLU stores."""
     import scipy.sparse.linalg as spla
 
-    A0 = csr[0]
-    aligned = all(
-        A.nnz == A0.nnz and np.array_equal(A.indices, A0.indices)
-        and np.array_equal(A.indptr, A0.indptr) for A in csr[1:])
-    if aligned:
-        Dstack = np.stack([A.data.astype(complex) for A in csr])
+    terms = _UnionTerms(csr)
+    opts = {}
+    if terms.symmetric:
+        opts = dict(permc_spec="MMD_AT_PLUS_A",
+                    diag_pivot_thresh=SYMMETRIC_PIVOT_THRESH,
+                    options=dict(SymmetricMode=True))
     lus = {}
     for j, sg in enumerate(sig_f):
-        w = spmf_fun_derivs(fv, sg, 1)[:, 0]
-        if aligned:
-            M = sp.csr_matrix((w @ Dstack, A0.indices, A0.indptr),
-                              shape=A0.shape)
-        else:
-            M = None
-            for wi, A in zip(w, csr):
-                T = A.astype(complex) * wi
-                M = T if M is None else M + T
-        lus[j] = spla.splu(M.tocsc())
+        lus[j] = spla.splu(terms.matrix(spmf_fun_derivs(fv, sg, 1)[:, 0]),
+                           **opts)
         trace.count("nt.refine.factorizations")
+        trace.count("nt.refine.lu_fill", lus[j].nnz)
     return lus
 
 
@@ -160,7 +218,8 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
     memory-sized chunks of at most ``max_batch`` shifts; ``"host"`` uses a
     scipy splu per shift; ``"auto"`` picks the host below 2n = 2e5 (the JAX
     package's crossover, not yet re-measured on the card).  ``dtype``, ``p``
-    and ``ir`` configure the chip backend.  ``stats``: a dict that, when
+    and ``ir`` configure the chip backend; the host backend's splu is
+    :func:`_host_shift_lus`'s.  ``stats``: a dict that, when
     given, accumulates over all chunks and passes ``"chip_shifts"`` (shifts
     factored and solved on the device) and ``"host_fallback_shifts"`` (shifts
     of the chip backend whose probe solve failed validation and went to a
