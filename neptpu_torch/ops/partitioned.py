@@ -604,11 +604,13 @@ def build_spmf_shift_solver(mats, fv, sigma, dtype=torch.float32, p=16,
                                        mode=mode, device=device)
     if Lc is None:
         return InterleavedSMW(base)
-    Lh, Uh = complex_lowrank_to_half(Lc, Uc)
-    tdt = to_torch_dtype(rdt)
-    return InterleavedSMW(base,
-                          torch.from_numpy(Lh).to(device=device, dtype=tdt),
-                          torch.from_numpy(Uh).to(device=device, dtype=tdt))
+    with trace.span("nt.factorize.smw", device=device.type == "cuda"):
+        Lh, Uh = complex_lowrank_to_half(Lc, Uc)
+        trace.count("nt.factorize.smw_rank", Lh.shape[1])
+        tdt = to_torch_dtype(rdt)
+        return InterleavedSMW(
+            base, torch.from_numpy(Lh).to(device=device, dtype=tdt),
+            torch.from_numpy(Uh).to(device=device, dtype=tdt))
 
 
 class ShiftPlan:

@@ -223,7 +223,8 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
     given, accumulates over all chunks and passes ``"chip_shifts"`` (shifts
     factored and solved on the device) and ``"host_fallback_shifts"`` (shifts
     of the chip backend whose probe solve failed validation and went to a
-    host splu instead).
+    host splu instead); a traced call counts the same under
+    ``nt.refine.chip.shifts`` and ``nt.refine.chip.fallbacks``.
 
     ``bsolver``: the batch solver of an earlier call (``return_solver=True``)
     with one shift a pair.  On the chip backend it is a
@@ -327,6 +328,8 @@ def _newton_refine(mats, fv, lams, Q, *, nsweeps, tol, errmeasure, dtype, p,
             # solve fails goes to a host splu
             bad = _validate_shifts(ops, sig_f, bsolver)
             lus = _host_shift_lus(csr, fv, sig_f[bad]) if bad else {}
+        trace.count("nt.refine.chip.shifts", k - len(bad))
+        trace.count("nt.refine.chip.fallbacks", len(bad))
         if stats is not None:
             stats["chip_shifts"] = stats.get("chip_shifts", 0) + k - len(bad)
             stats["host_fallback_shifts"] = (

@@ -1,7 +1,9 @@
 """The port's spans and counters (``neptpu_torch.trace``): the no-op when
 nobody traces, nesting and self time, the spans in the profiler's trace,
-the spans the solvers record beside their ``info`` times, and the counter of
-the refinement's factorizations.  This file imports no JAX; its ``cuda``
+the spans the solvers record beside their ``info`` times, the counters of
+the refinement's factorizations and of the chip backend's shifts and host
+fallbacks, the scan's SMW correction, and the benchmark's readers of the
+waveguide cell's spans and counters.  This file imports no JAX; its ``cuda``
 case runs on the card with
 
     python -m pytest --noconftest tests/test_torch_trace.py -m cuda -q
@@ -223,6 +225,114 @@ def test_chip_backend_spans_replace_its_timings():
     for s in spans:
         if s["name"].startswith("nt.refine.chip."):
             assert spans[s["parent"]]["name"] == "nt.refine.factor"
+
+
+@pytest.mark.parametrize("failing", [[], [1]])
+def test_chip_backend_counts_its_shifts_and_host_fallbacks(monkeypatch,
+                                                           failing):
+    from neptpu_torch.solvers import refine
+
+    mats, fv, lams, Q = _small_gun_pairs()
+    real = refine._validate_shifts
+    # a shift whose probe solve fails goes to a host splu
+    monkeypatch.setattr(refine, "_validate_shifts", lambda *a, **kw: sorted(
+        set(real(*a, **kw)) | {j for j in failing if j < len(a[1])}))
+    stats = {}
+    with trace.collect() as col:
+        nt.newton_refine(mats, fv, lams, Q, nsweeps=2, tol=1e-12, ir=3,
+                         backend="chip", stats=stats, device=CPU)
+    counters = col.counters()
+    assert counters["nt.refine.chip.shifts"] == stats["chip_shifts"] >= 1
+    assert counters["nt.refine.chip.fallbacks"] == stats[
+        "host_fallback_shifts"] >= len(failing)
+    assert counters["nt.refine.chip.shifts"] + counters[
+        "nt.refine.chip.fallbacks"] == sum(stats.values())
+
+
+def test_shifted_solver_records_its_smw_correction_and_rank():
+    from neptpu_torch.models.gallery.nlevp import _gun_from_matrices
+    from neptpu_torch.ops.partitioned import build_spmf_shift_solver
+
+    nep = _gun_from_matrices(*small_gun_like(nx=24), device=CPU)
+    mats, fv = collect_spmf_terms(nep)
+    with trace.collect() as col:
+        solver = build_spmf_shift_solver(mats, fv, SMALL_SIGMA,
+                                         dtype=torch.float64, device=CPU)
+    tot = col.totals()
+    assert solver.Lh is not None
+    assert tot["nt.factorize.smw"]["calls"] == 1
+    assert "device_ms" not in tot["nt.factorize.smw"]  # the CPU
+    assert col.counters()["nt.factorize.smw_rank"] == solver.Lh.shape[1] >= 1
+    spans = col.spans()
+    index = {s["name"]: i for i, s in enumerate(spans)}
+    assert spans[index["nt.factorize.smw"]]["parent"] is None
+    assert index["nt.factorize.assemble"] < index["nt.factorize.smw"]
+
+
+# the readers of the waveguide cell's spans and counters in the benchmark
+WEP_READERS = ("refine_chip_assemble_s", "refine_chip_factor_s",
+               "refine_chip_smw_s", "refine_chip_shifts",
+               "refine_host_fallbacks", "factorize_smw_s")
+
+
+def _reader(name):
+    import os
+    import sys
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if repo not in sys.path:
+        sys.path.insert(0, repo)
+    from portbench.harness import load_module
+
+    return load_module(os.path.join(repo, "portbench", "layers",
+                                    f"{name}.py"), "layers")
+
+
+@pytest.mark.parametrize("name", WEP_READERS)
+def test_wep_readers_give_nothing_without_their_span_or_counter(
+        monkeypatch, name):
+    import sys
+
+    rec = {"window": {"solves": [{"traced": True}, {"traced": False}]},
+           "solves": [{"traced": False}]}
+    trace.profiled().clear()
+    with trace.collect():  # spans of a request: not the profiled ones
+        with trace.span("nt.refine.chip.factor"):
+            trace.count("nt.refine.chip.shifts", 4)
+    reader = _reader(name)
+    assert reader.read(rec) is None
+    monkeypatch.setitem(sys.modules, "neptpu_torch.trace", None)
+    monkeypatch.delattr(nt, "trace")
+    assert reader.read(rec) is None
+
+
+def test_wep_readers_take_the_profiled_solves():
+    from torch.profiler import ProfilerActivity, profile
+
+    rec = {"window": {"solves": [{"traced": True}, {"traced": True},
+                                 {"traced": False}]}}
+    trace.profiled().clear()
+    with profile(activities=[ProfilerActivity.CPU]):
+        for _ in range(2):
+            with trace.span("nt.refine.chip.factor"):
+                time.sleep(0.002)
+            with trace.span("nt.factorize.smw"):
+                pass
+            trace.count("nt.refine.chip.shifts", 8)
+            trace.count("nt.refine.chip.fallbacks", 0)
+    tot = trace.profiled().totals()
+    read = {name: _reader(name).read(rec) for name in WEP_READERS}
+    trace.profiled().clear()
+    assert read["refine_chip_shifts"] == 8.0
+    assert read["refine_host_fallbacks"] == 0.0
+    # no CUDA events on the CPU: the host seconds, a profiled solve
+    assert read["refine_chip_factor_s"] == pytest.approx(
+        tot["nt.refine.chip.factor"]["seconds"] / 2) and \
+        read["refine_chip_factor_s"] >= 0.002
+    assert read["factorize_smw_s"] == pytest.approx(
+        tot["nt.factorize.smw"]["seconds"] / 2)
+    assert read["refine_chip_assemble_s"] is None
+    assert read["refine_chip_smw_s"] is None
 
 
 def test_load_totals_hold_the_import():
