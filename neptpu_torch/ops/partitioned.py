@@ -632,6 +632,7 @@ class ShiftPlan:
         n = seq[0].shape[0]
         self.n = n
         self.fv = fv
+        self._on_device = {}  # device -> _PlanOnDevice, built on first use
         if max_rank is None:
             max_rank = max(32, n // 64)
         self.lr = []  # (term index, L, Uc) with A_i = L @ Uc^T
@@ -740,6 +741,158 @@ class ShiftPlan:
         Uc = np.hstack(Us) if Us else None
         return strips, list(self.offsets), Lc, Uc
 
+    def on_device(self, device):
+        """The plan's :class:`_PlanOnDevice` on ``device``, uploaded the
+        first time it is asked for and kept with the plan."""
+        key = str(device)
+        if key not in self._on_device:
+            self._on_device[key] = _PlanOnDevice(self, device)
+        return self._on_device[key]
+
+
+class _PlanOnDevice:
+    """A :class:`ShiftPlan` held on one device: the bulk terms' values over
+    the union pattern, the low-rank terms' factors and the frozen scatter
+    maps into the row-interleaved real operands of :class:`BatchedShiftSMW`.
+
+    :meth:`operands` fills the operands of a whole batch of shifts on the
+    device from the (S, terms) weights alone: one complex128 contraction
+    ``W @ data_stack`` and fixed-index scatters, the values
+    :meth:`ShiftPlan.parts` + :func:`~neptpu_torch.parallel.spike.
+    interleave_complex_banded` + :func:`complex_lowrank_to_half` give.  The
+    border blocks the halves hold are decided from the union pattern once
+    (X1 where border columns carry entries, ``sel`` against Y2 where border
+    rows do).  Every host-to-device copy is one copy of a tensor, counted
+    in ``nt.refine.chip.upload_bytes``."""
+
+    def __init__(self, plan, device):
+        self.device, self.fv = device, plan.fv
+        self.n, self.m = n, m = plan.n, plan.m
+        offs = plan.offsets
+        # the interleaved offsets, as interleave_complex_banded orders them
+        roffs = sorted({2 * d + s for d in offs for s in (-1, 0, 1)})
+        self.offsets = tuple(roffs)
+        slot = {o: j for j, o in enumerate(roffs)}
+        self.nbytes = 0
+        T, nnz_u = plan.data_stack.shape
+        flat = np.flatnonzero(plan.data_stack)
+        ds = torch.zeros(T * nnz_u, dtype=torch.complex128, device=device)
+        ds[self._put(flat)] = self._put(plan.data_stack.ravel()[flat])
+        self.data_stack = ds.view(T, nnz_u)
+        self.bulk_idx = np.asarray(plan.bulk_idx, dtype=np.int64)
+        # a complex band entry z at (slot j, row r), offset d: Re z at real
+        # offset 2d on rows 2r and 2r + 1, -Im z at 2d + 1 on row 2r, Im z
+        # at 2d - 1 on row 2r + 1
+        lut = np.array([[slot[2 * d], slot[2 * d], slot[2 * d + 1],
+                         slot[2 * d - 1]] for d in offs], dtype=np.int64)
+        r2 = 2 * plan._band_row.astype(np.int64)
+        self.band = (self._put(plan._ib_pos.astype(np.int64)),
+                     self._put(lut[plan._band_slot].ravel()),
+                     self._put(np.stack([r2, r2 + 1, r2, r2 + 1], 1).ravel()))
+        R = 0
+        self.lr_terms = np.zeros(0, dtype=np.int64)
+        self.lr = None
+        if plan.lr:
+            self.lr_terms = np.concatenate(
+                [np.full(L.shape[1], i) for i, L, _ in plan.lr])
+            self.lr = (self._put(np.hstack([L for _, L, _ in plan.lr])),
+                       self._put(np.hstack([U for _, _, U in plan.lr])))
+            R = len(self.lr_terms)
+        self.x1 = self.y2 = None
+        if m and len(plan._x1_pos):       # border columns -> [X1 | sel]
+            r, c = plan._x1_rc
+            self.x1 = (R, self._put(plan._x1_pos.astype(np.int64)),
+                       self._put(2 * r.astype(np.int64)),
+                       self._put(R + c.astype(np.int64)))
+            R += m
+        if m and len(plan._y2_pos):       # border rows -> [sel | Y2]
+            r, c = plan._y2_rc
+            self.y2 = (R, self._put(plan._y2_pos.astype(np.int64)),
+                       self._put(2 * r.astype(np.int64)),
+                       self._put(R + c.astype(np.int64)))
+            R += m
+        self.R = R
+        trace.count("nt.refine.chip.upload_bytes", self.nbytes)
+
+    def _put(self, x):
+        x = np.ascontiguousarray(x)
+        self.nbytes += x.nbytes
+        return torch.from_numpy(x).to(self.device)
+
+    def batch(self, sigmas, p, ir, dtype):
+        """Every operand of a batch of shifts, filled on the device:
+        ``(layout, strips, band, Lh, Uh)``.  ``layout = (p, blk, b, nblk)``:
+        ``p`` halved until a partition of ``blk`` rows covers the
+        half-bandwidth ``b``, and ``nblk`` block-tridiagonal blocks of ``b``
+        rows.  ``strips`` (S,
+        offsets, p blk) in float32 where ``ir`` is set, else ``dtype``, with
+        an identity tail past row 2n that keeps the partitions regular;
+        ``band`` and the halves as :meth:`operands` gives them, the band at
+        least nblk bt wide where ``ir`` is set."""
+        from ..solvers.spmf_real import spmf_fun_scalars
+
+        W = np.stack([spmf_fun_scalars(self.fv, sg) for sg in sigmas])
+        n2 = 2 * self.n
+        b = max(max((abs(o) for o in self.offsets), default=1), 1)
+        p = int(p)
+        blk = -(-n2 // p)
+        while blk < b:
+            p = max(p // 2, 1)
+            blk = -(-n2 // p)
+        nblk = -(-n2 // b)
+        band, Lh, Uh = self.operands(
+            W, max(p * blk, nblk * b) if ir else p * blk)
+        strips = band[..., :p * blk].to(torch.float32 if ir else dtype,
+                                        copy=True).contiguous()
+        strips[:, self.offsets.index(0), n2:] = 1.0
+        return (p, blk, b, nblk), strips, band, Lh, Uh
+
+    def operands(self, W, width):
+        """The float64 operands of a batch from its (S, terms) complex128
+        weights ``W`` (host): the interleaved band (S, offsets, width),
+        zero past row 2n, and the SMW halves ``Lh``, ``Uh`` (S, 2n, R); one
+        zero column where the plan has no low-rank part."""
+        S, n, m = len(W), self.n, self.m
+        dev, f64 = self.device, torch.float64
+        W = np.ascontiguousarray(np.hstack([W[:, self.bulk_idx],
+                                            W[:, self.lr_terms]]))
+        trace.count("nt.refine.chip.upload_bytes", W.nbytes)
+        Wd = torch.from_numpy(W).to(dev)
+        nb = len(self.bulk_idx)
+        data = Wd[:, :nb] @ self.data_stack            # (S, union), complex
+        ib, rslot, rcol = self.band
+        z = data.index_select(1, ib)
+        re, im = z.real, z.imag
+        band = torch.zeros((S, len(self.offsets), width), dtype=f64,
+                           device=dev)
+        band[:, rslot, rcol] = torch.stack([re, re, -im, im],
+                                           dim=-1).reshape(S, -1)
+        Lh = torch.zeros((S, 2 * n, max(self.R, 1)), dtype=f64, device=dev)
+        Uh = torch.zeros_like(Lh)
+        if self.lr is not None:
+            L, U = self.lr
+            k = U.shape[1]
+            Lw = L * Wd[:, nb:].unsqueeze(1)            # w_i L_i, (S, n, k)
+            Lh[:, 0::2, :k] = Lw.real
+            Lh[:, 1::2, :k] = Lw.imag
+            Uh[:, 0::2, :k] = U.real
+            Uh[:, 1::2, :k] = -U.imag
+        sel = 2 * torch.arange(n - m, n, device=dev)
+        ar = torch.arange(m, device=dev)
+        if self.x1 is not None:
+            c0, pos, r2, c = self.x1
+            x = data.index_select(1, pos)
+            Lh[:, r2, c] = x.real
+            Lh[:, r2 + 1, c] = x.imag
+            Uh[:, sel, c0 + ar] = 1.0
+        if self.y2 is not None:
+            c0, pos, r2, c = self.y2
+            y = data.index_select(1, pos)
+            Lh[:, sel, c0 + ar] = 1.0
+            Uh[:, r2, c] = y.real
+            Uh[:, r2 + 1, c] = -y.imag
+        return band, Lh, Uh
+
 
 def _banded_mv64(D64, B64, C64, x, nblk, bt, n2):
     """y = B x in float64 through the BLOCK-TRIDIAGONAL form (block size bt =
@@ -786,12 +939,14 @@ class BatchedShiftSMW:
     float64 capacitance inverse — float64-quality solves from a float32
     factorization.  (The JAX package pads the shift batch to canonical sizes
     for its compile cache; eager PyTorch compiles nothing per shape, so the
-    batch is taken as given.)"""
+    batch is taken as given.)
+
+    The operands of every shift are filled on ``device`` at once, from the
+    plan's device form (:meth:`ShiftPlan.on_device`) and the shifts'
+    weights."""
 
     def __init__(self, mats, fv, sigmas, dtype=torch.float32, p=8,
                  mode="inv", plan=None, refine=1, ir=0, device=None):
-        from ..parallel.spike import interleave_complex_banded
-
         device = resolve_device(device)
         on_card = device.type == "cuda"
         sigmas = np.asarray(sigmas)
@@ -799,83 +954,53 @@ class BatchedShiftSMW:
         rdt = to_numpy_dtype(dtype)
         if np.issubdtype(rdt, np.complexfloating):
             rdt = np.dtype(np.float64 if rdt == np.complex128 else np.float32)
+        tdt = to_torch_dtype(rdt)
         with trace.span("nt.refine.chip.assemble"):
             if plan is None:
                 plan = ShiftPlan(mats, fv)
             if not plan.ok:
                 raise ValueError(
                     "bulk is neither banded nor arrow-splittable")
-            rs_list, Lt_list, Ut_list = [], [], []
-            roffs = None
-            for sg in sigmas:
-                strips, offs, Lc, Uc = plan.parts(sg)
-                rstrips, roffs = interleave_complex_banded(strips, offs)
-                rs_list.append(rstrips)
-                if Lc is None:
-                    Lc = np.zeros((plan.n, 1), dtype=complex)
-                    Uc = np.zeros((plan.n, 1), dtype=complex)
-                Lh, Uh = complex_lowrank_to_half(Lc, Uc)
-                Lt_list.append(Lh)
-                Ut_list.append(Uh)
-            n2 = rs_list[0].shape[1]
-            offsets = tuple(int(o) for o in roffs)
-            b = max(max((abs(o) for o in offsets), default=1), 1)
-            p = int(p)
-            blk = -(-n2 // p)
-            while blk < b:
-                p = max(p // 2, 1)
-                blk = -(-n2 // p)
-            stack = np.stack([_pad_strips(rs, offsets, p * blk)
-                              for rs in rs_list])
-            Lt_stack, Ut_stack = np.stack(Lt_list), np.stack(Ut_list)
+            form = plan.on_device(device)
+            (p, blk, b, nblk), strips, band, Lh, Uh = form.batch(
+                sigmas, p, ir, tdt)
+        offsets, n2, bt = form.offsets, 2 * plan.n, b
         self.aux = (offsets, p, blk, b, n2, mode)
         self.refine = int(refine)
         self.ir = int(ir)
         self.n = plan.n
         self.device = device
 
-        def dev(x, dt):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(
-                device=device, dtype=dt)
-
         if self.ir:
             # float32 factors; the block-tridiagonal float64 form of the band
             # serves the refinement residuals (the dense float32 partition
             # blocks are dropped: this path never calls the float32 matvec)
             with trace.span("nt.refine.chip.factor", device=on_card):
-                strips32 = dev(stack, torch.float32)
                 fac, piv, V, W, r_fac, r_piv, _ = _factor_partitioned(
-                    strips32, offsets, p, blk, b, mode)
+                    strips, offsets, p, blk, b, mode)
                 self.base = PartitionedBandedSolver.from_factors(
-                    fac, piv, V, W, r_fac, r_piv, strips32,
+                    fac, piv, V, W, r_fac, r_piv, strips,
                     (None, None, None), offsets, p, blk, b, n2, mode)
-                bt = int(b)
-                nblk = -(-n2 // bt)
                 self.btdims = (nblk, bt)
-                s64bt = np.zeros((len(rs_list), len(offsets), nblk * bt))
-                for i, rs in enumerate(rs_list):
-                    s64bt[i, :, :n2] = rs
                 self.D64, self.B64, self.C64 = _assemble_DBC(
-                    dev(s64bt, torch.float64), offsets, nblk, bt, bt, bt)
-                self.Lh64 = dev(Lt_stack, torch.float64)
-                self.Uh64 = dev(Ut_stack, torch.float64)
+                    band[..., :nblk * bt], offsets, nblk, bt, bt, bt)
+                del band
+                self.Lh64, self.Uh64 = Lh, Uh
             with trace.span("nt.refine.chip.smw", device=on_card):
                 self.X64 = self._bsolve64(self.Lh64)
                 # K inherits the GLOBAL conditioning of M(sigma) (near an
                 # eigenvalue kappa(K) ~ 1/dist), so it is inverted in float64
                 self.Kinv64 = torch.linalg.inv(_smw_K(self.X64, self.Uh64))
             return
-        tdt = to_torch_dtype(rdt)
         with trace.span("nt.refine.chip.factor", device=on_card):
-            strips_b = dev(stack, tdt)
             fac, piv, V, W, r_fac, r_piv, DBC = _factor_partitioned(
-                strips_b, offsets, p, blk, b, mode)
+                strips, offsets, p, blk, b, mode)
             base = PartitionedBandedSolver.from_factors(
-                fac, piv, V, W, r_fac, r_piv, strips_b, DBC, offsets, p, blk,
+                fac, piv, V, W, r_fac, r_piv, strips, DBC, offsets, p, blk,
                 b, n2, mode)
         with trace.span("nt.refine.chip.smw", device=on_card):
-            self.smw = InterleavedSMW(base, dev(Lt_stack, tdt),
-                                      dev(Ut_stack, tdt), refine=self.refine)
+            self.smw = InterleavedSMW(base, Lh.to(tdt), Uh.to(tdt),
+                                      refine=self.refine)
 
     def _bsolve64(self, f):
         """Banded base solve to float64 accuracy: float32 SPIKE solve +
