@@ -16,6 +16,8 @@ the scan's own frozen factorization instead, with no new one.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 
 from ..core import trace
@@ -40,11 +42,15 @@ def spmf_fun_derivs(fv, lam, k=2):
 class _TermOps:
     """Batched host-side SPMF residual machinery: all terms stacked into ONE
     tall CSR so each sweep pays a single SpMM ``A_all @ Q`` -> (nt, n, k),
-    contracted against per-pair derivative weights with one einsum."""
+    contracted against per-pair derivative weights with one einsum.  It
+    holds the terms' other host forms too, each built on first use and then
+    kept: ``union`` (:class:`_UnionTerms`, for the host splu) and ``plan``
+    (a :class:`ShiftPlan`, for the chip factorization)."""
 
     def __init__(self, csr, fv):
         import scipy.sparse as sp
 
+        self.csr = csr
         self.fv = fv
         self.nt = len(csr)
         self.n = csr[0].shape[0]
@@ -68,6 +74,17 @@ class _TermOps:
     def contract(T, w):
         """sum_i w[i, j] * T[i, :, j] -> (n, k)."""
         return np.einsum("tnk,tk->nk", T, w)
+
+    @functools.cached_property
+    def union(self):
+        return _UnionTerms(self.csr)
+
+    @functools.cached_property
+    def plan(self):
+        from ..ops.partitioned import ShiftPlan
+
+        with trace.span("nt.refine.plan"):
+            return ShiftPlan(self.csr, self.fv)
 
 
 def _refine_batch_limit(plan, p=8, budget_bytes=6.0e9):
@@ -148,17 +165,16 @@ class _UnionTerms:
              self.indptr), shape=self.shape)
 
 
-def _host_shift_lus(csr, fv, sig_f):
+def _host_shift_lus(terms, fv, sig_f):
     """An exact complex128 scipy ``splu`` of M(sig) at each shift, M(sig)
-    assembled over the terms' union pattern (:class:`_UnionTerms`).  Where
-    that pattern is structurally symmetric, SuperLU orders by minimum degree
-    on A + A^T with threshold pivoting (``SYMMETRIC_PIVOT_THRESH``), its
-    mode for such matrices; elsewhere it keeps its defaults (COLAMD, partial
-    pivoting).  Counts each factorization and the entries of L and U that
-    SuperLU stores."""
+    assembled over the terms' union pattern (``terms``, a
+    :class:`_UnionTerms`).  Where that pattern is structurally symmetric,
+    SuperLU orders by minimum degree on A + A^T with threshold pivoting
+    (``SYMMETRIC_PIVOT_THRESH``), its mode for such matrices; elsewhere it
+    keeps its defaults (COLAMD, partial pivoting).  Counts each
+    factorization and the entries of L and U that SuperLU stores."""
     import scipy.sparse.linalg as spla
 
-    terms = _UnionTerms(csr)
     opts = {}
     if terms.symmetric:
         opts = dict(permc_spec="MMD_AT_PLUS_A",
@@ -237,192 +253,174 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
     solver of the first pass as a fourth item with ``return_solver=True``
     (None where the pairs went in chunks or there were none)."""
     with trace.span("nt.refine"):
-        return _newton_refine(
-            mats, fv, lams, Q, nsweeps=nsweeps, tol=tol,
-            errmeasure=errmeasure, dtype=dtype, p=p, bsolver=bsolver,
-            plan=plan, ir=ir, shift_rel=shift_rel,
-            return_solver=return_solver, max_batch=max_batch,
-            backend=backend, target_distinct=target_distinct, device=device,
-            stats=stats, _second_pass=_second_pass)
+        lams = np.array(lams, dtype=complex, copy=True)
+        Q = np.array(Q, dtype=complex, copy=True)
+        k = len(lams)
+        if k == 0:
+            return (lams, Q, np.zeros(0)) + ((None,) if return_solver else ())
+        if backend not in ("chip", "host", "auto"):
+            raise ValueError(
+                f"backend must be chip|host|auto, got {backend!r}")
+        # ONE partition count for both the memory budget and the solver
+        p = min(int(p), 8)
+        ops = _TermOps([A.tocsr() for A in mats], fv)
+        if plan is not None:
+            ops.plan = plan      # in place of the one built on first use
+        if backend == "auto":
+            # the JAX package's crossover, not yet re-measured on the card;
+            # below it the host whatever the plan says, so no plan is built
+            backend = ("chip" if 2 * ops.n > 2e5 and ops.plan.ok
+                       else "host")
+        if backend == "host":
+            # host sweeps are cheap (k SpMVs + triangular solves); weakly
+            # converged Ritz pairs need several frozen-shift contractions
+            nsweeps = max(int(nsweeps), 6)
+        else:
+            import torch
 
+            from ..config import resolve_device
+            from ..ops.partitioned import BATCH_SIZES, BatchedShiftSMW
 
-def _newton_refine(mats, fv, lams, Q, *, nsweeps, tol, errmeasure, dtype, p,
-                   bsolver, plan, ir, shift_rel, return_solver, max_batch,
-                   backend, target_distinct, device, stats, _second_pass):
-    """:func:`newton_refine` inside its span (the chunks and the straggler
-    passes call it again)."""
-    lams = np.array(lams, dtype=complex, copy=True)
-    Q = np.array(Q, dtype=complex, copy=True)
-    k = len(lams)
-    if k == 0:
-        return (lams, Q, np.zeros(0)) + ((None,) if return_solver else ())
-    if backend not in ("chip", "host", "auto"):
-        raise ValueError(f"backend must be chip|host|auto, got {backend!r}")
-    # ONE partition count for both the memory budget and the solver itself
-    p = min(int(p), 8)
-    csr = [A.tocsr() for A in mats]
-    if backend == "auto":
-        from ..ops.partitioned import ShiftPlan
+            device = resolve_device(device)
+            if dtype is None:
+                dtype = torch.float32
+        # an errmeasure callable may carry a batched form under ``.batch``
+        err_batch = getattr(errmeasure, "batch", None)
 
-        if plan is None:
-            with trace.span("nt.refine.plan"):
-                plan = ShiftPlan(mats, fv)
-        backend = "chip" if (plan.ok and 2 * plan.n > 2e5) else "host"
-    if backend == "host":
-        # host sweeps are cheap (k SpMVs + triangular solves); weakly
-        # converged Ritz pairs need several frozen-shift contractions
-        nsweeps = max(int(nsweeps), 6)
-    else:
-        import torch
+        def measure(lams_v, Qm):
+            with trace.span("nt.refine.measure"):
+                if err_batch is not None:
+                    return np.asarray(err_batch(lams_v, Qm), dtype=float)
+                if errmeasure is not None:
+                    return np.array([float(errmeasure(lams_v[j], Qm[:, j]))
+                                     for j in range(len(lams_v))])
+                return np.linalg.norm(ops.contract(
+                    ops.apply(Qm), ops.weights(lams_v, 1)[:, 0]), axis=0)
 
-        from ..config import resolve_device
-        from ..ops.partitioned import (BATCH_SIZES, BatchedShiftSMW,
-                                       ShiftPlan)
+        def run_pass(lams, Q, bsolver):
+            """One pass over the pairs: factor at their offset shifts (or
+            take ``bsolver``), then up to ``nsweeps`` sweeps."""
+            lams = np.array(lams, dtype=complex, copy=True)
+            Q = np.array(Q, dtype=complex, copy=True)
+            k = len(lams)
+            sig_f = lams + 1j * shift_rel * np.maximum(np.abs(lams), 1.0)
+            if backend == "host":
+                if bsolver is None or not np.array_equal(bsolver.sig, sig_f):
+                    with trace.span("nt.refine.factor"):
+                        bsolver = _HostBatchSolver(
+                            _host_shift_lus(ops.union, fv, sig_f), sig_f)
+                solve = bsolver.solve
+            else:
+                plan = ops.plan if bsolver is None else None
+                with trace.span("nt.refine.factor"):
+                    if bsolver is None:
+                        # factor at OFFSET shifts: an eigenvalue-accurate
+                        # shift makes M(lam_j) singular to ~the backward
+                        # error, and the float32-seeded refinement diverges
+                        # once kappa * eps_f32 > 1
+                        bsolver = BatchedShiftSMW(
+                            mats, fv, sig_f, dtype=dtype, p=p, plan=plan,
+                            ir=ir, device=device)
+                        trace.count("nt.refine.factorizations", k)
+                    # one probe solve a shift, a passed solver's too: a
+                    # shift whose solve fails goes to a host splu
+                    bad = _validate_shifts(ops, sig_f, bsolver)
+                    lus = (_host_shift_lus(ops.union, fv, sig_f[bad])
+                           if bad else {})
+                trace.count("nt.refine.chip.shifts", k - len(bad))
+                trace.count("nt.refine.chip.fallbacks", len(bad))
+                if stats is not None:
+                    stats["chip_shifts"] = (
+                        stats.get("chip_shifts", 0) + k - len(bad))
+                    stats["host_fallback_shifts"] = (
+                        stats.get("host_fallback_shifts", 0) + len(bad))
 
-        device = resolve_device(device)
-        if dtype is None:
-            dtype = torch.float32
-        if plan is None and bsolver is None:
-            with trace.span("nt.refine.plan"):
-                plan = ShiftPlan(mats, fv)
-    # memory-aware chunking: each chunk gets its OWN factorization (built,
-    # used for all sweeps, freed)
-    if backend == "chip" and bsolver is None and not _second_pass:
-        if max_batch is None:
-            lim = _refine_batch_limit(plan, p=p)
-            fits = [c for c in BATCH_SIZES if c <= lim]
-            max_batch = fits[-1] if fits else lim
-        if k > max_batch:
-            nchunks = -(-k // max_batch)  # even chunk sizes (5+5, not 9+1)
-            max_batch = -(-k // nchunks)
-            errs = np.zeros(k)
-            for s0 in range(0, k, max_batch):
-                sl = slice(s0, min(s0 + max_batch, k))
-                lams[sl], Q[:, sl], errs[sl] = _newton_refine(
-                    mats, fv, lams[sl], Q[:, sl], nsweeps=nsweeps, tol=tol,
-                    errmeasure=errmeasure, dtype=dtype, p=p, bsolver=None,
-                    plan=plan, ir=ir, shift_rel=shift_rel,
-                    return_solver=False, max_batch=max_batch,
-                    backend="chip", target_distinct=None, device=device,
-                    stats=stats, _second_pass=False)
-            return (lams, Q, errs) + ((None,) if return_solver else ())
+                def solve(R):
+                    yre, yim = bsolver.solve_pairs(R.real, R.imag)
+                    Y = yre + 1j * yim
+                    for t, j in enumerate(bad):
+                        Y[:, j] = lus[t].solve(R[:, j])
+                    return Y
 
-    ops = _TermOps(csr, fv)
-    sig_f = lams + 1j * shift_rel * np.maximum(np.abs(lams), 1.0)
-    if backend == "host":
-        if bsolver is None or not np.array_equal(bsolver.sig, sig_f):
-            with trace.span("nt.refine.factor"):
-                bsolver = _HostBatchSolver(_host_shift_lus(csr, fv, sig_f),
-                                           sig_f)
-        solve = bsolver.solve
-    else:
-        with trace.span("nt.refine.factor"):
-            if bsolver is None:
-                # factor at OFFSET shifts: an eigenvalue-accurate shift makes
-                # M(lam_j) singular to ~the backward error, and the
-                # float32-seeded refinement diverges once kappa * eps_f32 > 1
-                bsolver = BatchedShiftSMW(mats, fv, sig_f, dtype=dtype, p=p,
-                                          plan=plan, ir=ir, device=device)
-                trace.count("nt.refine.factorizations", k)
-            # one probe solve a shift, a passed solver's too: a shift whose
-            # solve fails goes to a host splu
-            bad = _validate_shifts(ops, sig_f, bsolver)
-            lus = _host_shift_lus(csr, fv, sig_f[bad]) if bad else {}
-        trace.count("nt.refine.chip.shifts", k - len(bad))
-        trace.count("nt.refine.chip.fallbacks", len(bad))
-        if stats is not None:
-            stats["chip_shifts"] = stats.get("chip_shifts", 0) + k - len(bad)
-            stats["host_fallback_shifts"] = (
-                stats.get("host_fallback_shifts", 0) + len(bad))
+            errs = measure(lams, Q)
+            for _ in range(int(nsweeps)):
+                if tol is not None and np.all(errs < tol):
+                    break
+                with trace.span("nt.refine.sweep"):
+                    T = ops.apply(Q)                   # (nt, n, k), one SpMM
+                    W = ops.weights(lams, 2)
+                    Mq = ops.contract(T, W[:, 0])
+                    Mpq = ops.contract(T, W[:, 1])
+                    # least-squares eigenvalue update lam = argmin ||M(lam) q||
+                    denom = np.einsum("nk,nk->k", np.conj(Mpq), Mpq).real
+                    num = np.einsum("nk,nk->k", np.conj(Mpq), Mq)
+                    step = np.where(denom > 0,
+                                    num / np.where(denom > 0, denom, 1.0), 0)
+                    cand = lams - step
+                    # inverse-iteration RHS at the updated eigenvalues
+                    Y = solve(ops.contract(T, ops.weights(cand, 2)[:, 1]))
+                    newQ = Y / np.linalg.norm(Y, axis=0, keepdims=True)
+                # accept the first improving combo of (new lam, new q) /
+                # (old lam, new q) / (new lam, old q), per pair; never worse
+                pend = np.arange(k)
+                for li, Qi in ((cand, newQ), (lams.copy(), newQ),
+                               (cand, Q.copy())):
+                    if not len(pend):
+                        break
+                    e = measure(li[pend], Qi[:, pend])
+                    hit = e < errs[pend]
+                    idx = pend[hit]
+                    lams[idx] = li[idx]
+                    Q[:, idx] = Qi[:, idx]
+                    errs[idx] = e[hit]
+                    pend = pend[~hit]
+            return lams, Q, errs, bsolver
 
-        def solve(R):
-            yre, yim = bsolver.solve_pairs(R.real, R.imag)
-            Y = yre + 1j * yim
-            for t, j in enumerate(bad):
-                Y[:, j] = lus[t].solve(R[:, j])
-            return Y
+        def distinct_done(lams, errs):
+            """``target_distinct`` distinct pairs already below tol."""
+            if target_distinct is None:
+                return False
+            good = np.nonzero(errs < tol)[0]
+            sel = []
+            for j in good[np.argsort(errs[good])]:
+                if all(abs(lams[j] - lams[i]) > 1e-7 * max(1.0, abs(lams[j]))
+                       for i in sel):
+                    sel.append(j)
+            return len(sel) >= int(target_distinct)
 
-    # an errmeasure callable may carry a batched form under ``.batch``
-    err_batch = getattr(errmeasure, "batch", None)
-
-    def meas_vec(lams_v, Qm):
-        with trace.span("nt.refine.measure"):
-            if err_batch is not None:
-                return np.asarray(err_batch(lams_v, Qm), dtype=float)
-            if errmeasure is not None:
-                return np.array([float(errmeasure(lams_v[j], Qm[:, j]))
-                                 for j in range(len(lams_v))])
-            return np.linalg.norm(ops.contract(
-                ops.apply(Qm), ops.weights(lams_v, 1)[:, 0]), axis=0)
-
-    errs = meas_vec(lams, Q)
-    for _ in range(int(nsweeps)):
-        if tol is not None and np.all(errs < tol):
-            break
-        with trace.span("nt.refine.sweep"):
-            T = ops.apply(Q)                       # (nt, n, k), one SpMM
-            W = ops.weights(lams, 2)
-            Mq = ops.contract(T, W[:, 0])
-            Mpq = ops.contract(T, W[:, 1])
-            # least-squares eigenvalue update lam = argmin ||M(lam) q||
-            denom = np.einsum("nk,nk->k", np.conj(Mpq), Mpq).real
-            num = np.einsum("nk,nk->k", np.conj(Mpq), Mq)
-            step = np.where(denom > 0,
-                            num / np.where(denom > 0, denom, 1.0), 0)
-            cand = lams - step
-            # inverse-iteration RHS at the updated eigenvalues: M'(cand) q
-            Y = solve(ops.contract(T, ops.weights(cand, 2)[:, 1]))
-            newQ = Y / np.linalg.norm(Y, axis=0, keepdims=True)
-        # accept the first improving combo of (new lam, new q) /
-        # (old lam, new q) / (new lam, old q), per pair; never worse
-        pend = np.arange(k)
-        for li, Qi in ((cand, newQ), (lams.copy(), newQ), (cand, Q.copy())):
-            if not len(pend):
-                break
-            e = meas_vec(li[pend], Qi[:, pend])
-            hit = e < errs[pend]
-            idx = pend[hit]
-            lams[idx] = li[idx]
-            Q[:, idx] = Qi[:, idx]
-            errs[idx] = e[hit]
-            pend = pend[~hit]
-
-    def _distinct_done():
-        """``target_distinct`` distinct pairs already below tol."""
-        if target_distinct is None:
-            return False
-        good = np.nonzero(errs < tol)[0]
-        sel = []
-        for j in good[np.argsort(errs[good])]:
-            if all(abs(lams[j] - lams[i]) > 1e-7 * max(1.0, abs(lams[j]))
-                   for i in sel):
-                sel.append(j)
-        return len(sel) >= int(target_distinct)
-
-    # stragglers get more passes, each with a fresh factorization at the
-    # now-better eigenvalue estimates (host refactors are cheap: up to four)
-    passes = 0
-    max_passes = 4 if backend == "host" else 2
-    while (tol is not None and not _second_pass and passes < max_passes
-           and np.any(errs >= tol) and not _distinct_done()):
-        bad_pairs = np.nonzero(errs >= tol)[0]
-        lb, Qb, eb = _newton_refine(
-            mats, fv, lams[bad_pairs], Q[:, bad_pairs], nsweeps=nsweeps,
-            tol=tol, errmeasure=errmeasure, dtype=dtype, p=p, bsolver=None,
-            plan=plan, ir=ir, shift_rel=shift_rel, return_solver=False,
-            max_batch=None, backend=backend, target_distinct=None,
-            device=device, stats=stats, _second_pass=True)
-        improved = False
-        for t, j in enumerate(bad_pairs):
-            if eb[t] < errs[j]:
-                lams[j], Q[:, j], errs[j] = lb[t], Qb[:, t], eb[t]
-                improved = True
-        passes += 1
-        if not improved:
-            break
-    if return_solver:
-        return lams, Q, errs, bsolver
-    return lams, Q, errs
+        # memory-aware chunking: each chunk gets its OWN factorization
+        # (built, used for all sweeps, freed), in even sizes (5+5, not 9+1)
+        size = k
+        if backend == "chip" and bsolver is None and not _second_pass:
+            if max_batch is None:
+                lim = _refine_batch_limit(ops.plan, p=p)
+                fits = [c for c in BATCH_SIZES if c <= lim]
+                max_batch = fits[-1] if fits else lim
+            size = -(-k // -(-k // max_batch))
+        if size < k:
+            target_distinct = None
+        # stragglers get more passes, each with a fresh factorization at the
+        # now-better eigenvalues (host refactors are cheap: up to four)
+        max_passes = 0 if tol is None or _second_pass else (
+            4 if backend == "host" else 2)
+        errs = np.zeros(k)
+        for s0 in range(0, k, size):
+            sl = slice(s0, s0 + size)
+            ls, Qs, es, solver = run_pass(lams[sl], Q[:, sl], bsolver)
+            for _ in range(max_passes):
+                if not np.any(es >= tol) or distinct_done(ls, es):
+                    break
+                bad = np.nonzero(es >= tol)[0]
+                lb, Qb, eb, _ = run_pass(ls[bad], Qs[:, bad], None)
+                hit = eb < es[bad]
+                ls[bad[hit]], Qs[:, bad[hit]], es[bad[hit]] = (
+                    lb[hit], Qb[:, hit], eb[hit])
+                if not hit.any():
+                    break
+            lams[sl], Q[:, sl], errs[sl] = ls, Qs, es
+        if return_solver:
+            return lams, Q, errs, solver if size == k else None
+        return lams, Q, errs
 
 
 def resinv_refine(mats, fv, solver, lams, Q, *, nsweeps=3, tol=None,

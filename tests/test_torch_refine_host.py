@@ -1,8 +1,9 @@
-"""The host backend's shifted factorizations (``refine._host_shift_lus``):
-M(sig) assembled over the terms' union pattern, and SuperLU's symmetric
-ordering with threshold pivoting where that pattern is structurally
-symmetric, against scipy's default ``splu`` of the summed CSR matrix and
-against the JAX package's host refinement, on the CPU."""
+"""The host backend's shifted factorizations (``refine._host_shift_lus``
+over the terms' ``refine._UnionTerms``): M(sig) assembled over their union
+pattern, and SuperLU's symmetric ordering with threshold pivoting where that
+pattern is structurally symmetric, against scipy's default ``splu`` of the
+summed CSR matrix and against the JAX package's host refinement, on the
+CPU."""
 import importlib
 
 import numpy as np
@@ -68,11 +69,12 @@ def gun():
 # never more fill, and every factorization took the symmetric ordering
 def test_gun_like_shift_lus_match_the_default_splu(gun, monkeypatch):
     csr, fv = gun["csr"], gun["fv"]
-    assert trefine._UnionTerms(csr).symmetric
+    terms = trefine._UnionTerms(csr)
+    assert terms.symmetric
     log = _SpluLog()
     monkeypatch.setattr(spla, "splu", log)
     with trace.collect() as col:
-        lus = trefine._host_shift_lus(csr, fv, BAND)
+        lus = trefine._host_shift_lus(terms, fv, BAND)
     monkeypatch.undo()
     assert [opts for _, opts, _ in log.calls] == [SYMMETRIC] * 10
     rng = np.random.default_rng(0)
@@ -98,12 +100,13 @@ def test_unsymmetric_pattern_keeps_the_default_call(monkeypatch):
     mats, fv = collect_spmf_terms(neptpu_torch.nep_gallery(
         "waveguide", device=CPU, **WEP))
     csr = [A.tocsr() for A in mats]
-    assert not trefine._UnionTerms(csr).symmetric
+    terms = trefine._UnionTerms(csr)
+    assert not terms.symmetric
     log = _SpluLog()
     monkeypatch.setattr(spla, "splu", log)
     sig = np.array([-3 - 3.5j, -1.2 - 1.6j])
     with trace.collect() as col:
-        lus = trefine._host_shift_lus(csr, fv, sig)
+        lus = trefine._host_shift_lus(terms, fv, sig)
     monkeypatch.undo()
     assert [opts for _, opts, _ in log.calls] == [{}, {}]
     assert col.counters()["nt.refine.factorizations"] == 2

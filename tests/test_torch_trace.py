@@ -249,6 +249,83 @@ def test_chip_backend_counts_its_shifts_and_host_fallbacks(monkeypatch,
         "nt.refine.chip.fallbacks"] == sum(stats.values())
 
 
+# ``_small_gun_pairs`` refined with one sweep a pass towards an unreachable
+# 1e-14, so every pass leaves stragglers, the first shift of each chip pass
+# sent to a host splu: (lams, errs, Q[:2]) as the recursive newton_refine
+# returned them before its passes became one build and two loops
+PINNED = {
+    "host": (
+        [1249.640663791793 + 0.07520507171536074j,
+         1266.0748784145167 + 0.548876451822401j,
+         1262.5836900292793 + 1.1413114105077966j,
+         1232.542356149611 + 0.010256817708211028j],
+        [1.510858110430687e-11, 6.03777648053728e-12,
+         4.2286249327016854e-12, 9.796341324618884e-12],
+        [[-0.00983214820952992 + 0.06455655887728286j,
+          -0.005310558001467141 - 0.0024107519416354923j,
+          0.014168860000909226 - 0.009884273592699177j,
+          -0.04188843591848751 - 0.032480503378018964j],
+         [-0.0035102058749107773 + 0.031552600994056566j,
+          -0.0030760839984056345 - 0.039044167498842514j,
+          -0.02595686218196922 + 0.0037825766234286695j,
+          -0.03910841750810303 - 0.02992584317912875j]]),
+    "chip": (
+        [1249.640663791793 + 0.07520507171536074j,
+         1266.0748784145167 + 0.5488764518224162j,
+         1262.5836900292793 + 1.1413114105078133j,
+         1232.542356149611 + 0.010256817708217222j],
+        [1.510858110430687e-11, 3.9490564320386664e-11,
+         2.6468781428137354e-13, 2.7525560693517123e-13],
+        [[-0.00983214820952992 + 0.06455655887728286j,
+          -0.005310557937979492 - 0.0024107520814892545j,
+          -0.009884272286456995 - 0.014168860912151202j,
+          -0.04188843524639166 - 0.032480504244783576j],
+         [-0.0035102058749107773 + 0.031552600994056566j,
+          -0.003076082970188234 - 0.039044167579854204j,
+          0.003782574230436228 + 0.02595686253068887j,
+          -0.039108416888869346 - 0.02992584398836875j]]),
+}
+
+
+# a call builds each host form of its terms once, whatever its passes; the
+# auto backend below the crossover builds no shift plan; and the passes give
+# the pinned pairs (to rounding: Q's chip and host paths differ at 1e-8)
+@pytest.mark.parametrize("backend", ["host", "chip"])
+def test_newton_refine_builds_each_host_form_once(monkeypatch, backend):
+    from neptpu_torch.solvers import refine
+
+    mats, fv, lams, Q = _small_gun_pairs()
+    real = refine._validate_shifts
+    monkeypatch.setattr(refine, "_validate_shifts", lambda *a, **kw: sorted(
+        set(real(*a, **kw)) | {0}))
+    built = {}
+    for name in ("_TermOps", "_UnionTerms"):
+        def counted(*a, _name=name, _cls=getattr(refine, name), **kw):
+            built[_name] = built.get(_name, 0) + 1
+            return _cls(*a, **kw)
+
+        monkeypatch.setattr(refine, name, counted)
+    kw = dict(nsweeps=1, tol=1e-14, ir=3, device=CPU)
+    with trace.collect() as col:
+        tl, tQ, te = nt.newton_refine(mats, fv, lams, Q, backend=backend,
+                                      **kw)
+    assert col.totals()["nt.refine.factor"]["calls"] == 3
+    assert built == {"_TermOps": 1, "_UnionTerms": 1}
+    pl, pe, pq = PINNED[backend]
+    np.testing.assert_allclose(tl, pl, rtol=1e-14)
+    np.testing.assert_allclose(te, pe, rtol=1e-6)
+    np.testing.assert_allclose(tQ[:2], pq, rtol=1e-10)
+    if backend == "host":
+        built.clear()
+        with trace.collect() as col:
+            al, aQ, ae = nt.newton_refine(mats, fv, lams, Q, backend="auto",
+                                          **kw)
+        assert "nt.refine.plan" not in col.totals()
+        assert built == {"_TermOps": 1, "_UnionTerms": 1}
+        assert np.array_equal(al, tl) and np.array_equal(ae, te)
+        assert np.array_equal(aQ, tQ)
+
+
 def test_shifted_solver_records_its_smw_correction_and_rank():
     from neptpu_torch.models.gallery.nlevp import _gun_from_matrices
     from neptpu_torch.ops.partitioned import build_spmf_shift_solver

@@ -4,8 +4,12 @@ Inputs are made with numpy from a seed and handed to both packages, so the
 JAX reference (``neptpu``, on the CPU in float64) and the port
 (``neptpu_torch``, on a torch CPU device) compute from identical operands.
 """
+import os
+
 import numpy as np
+import scipy.linalg  # noqa: F401  (loads scipy's OpenBLAS before the cap)
 import scipy.sparse as sp
+import scipy.sparse.linalg  # noqa: F401
 import torch
 from torch.overrides import TorchFunctionMode
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -14,7 +18,27 @@ from torch.utils._python_dispatch import TorchDispatchMode
 # parity tests run on the CPU and say so at every call
 CPU = "cpu"
 
-# tier-1 runs several pytest workers on one host: one intra-op thread each
+# The thread policy of the whole test run: one BLAS, OpenMP and torch
+# intra-op thread in every process.  Tier-1 runs six pytest workers on one
+# host, and each worker imports this module while it collects, before any
+# test runs, so the policy covers every test of the run, the JAX package's
+# too.  numpy's and scipy's OpenBLAS otherwise start a pool of one thread a
+# core in each worker, and their threads spin while they wait: six workers
+# on an 8-core CPU host then ran the slowest tests tens of times slower than
+# alone (the fiber quasinewton test: 1017 s in the run, 24 s alone; the
+# whole run 1250 s against 391 s under this policy).  Children
+# (spawned gloo ranks, subprocess probes) read the environment when their
+# BLAS loads; the pools already loaded here are capped through threadpoolctl
+# where it is installed.  Torch keeps one intra-op thread: with two,
+# ``torch.linalg.inv`` of a float32 batch hangs inside oneMKL on this build.
+for _var in ("OPENBLAS_NUM_THREADS", "OMP_NUM_THREADS", "MKL_NUM_THREADS"):
+    os.environ[_var] = "1"
+try:
+    from threadpoolctl import threadpool_limits
+except ImportError:  # the card's machine may lack it: the env alone applies
+    pass
+else:
+    threadpool_limits(1, user_api="blas")
 torch.set_num_threads(1)
 
 # the small gun-structured fixture's shift and scale (its spectrum spans
