@@ -40,9 +40,15 @@ def spmf_fun_derivs(fv, lam, k=2):
 
 
 class _TermOps:
-    """Batched host-side SPMF residual machinery: all terms stacked into ONE
-    tall CSR so each sweep pays a single SpMM ``A_all @ Q`` -> (nt, n, k),
-    contracted against per-pair derivative weights with one einsum.  It
+    """Batched host-side SPMF residual machinery, the terms stacked by row
+    support.  Terms whose nonempty rows are the same form a group: its rows
+    ``r``, its term indices ``t`` and one CSR stacking those terms restricted
+    to ``r``.  ``apply(Q)`` pays one SpMM a group, and ``contract`` sums
+    each group's products against its terms' weights into the output's rows
+    ``r``: the same products and sums as one tall stack of all nt terms over
+    all n rows, with the rows that hold no entry left out (at the waveguide
+    each of the 210 boundary terms touches 105 of 11655 rows).  Where every
+    term covers every row there is one group, and that tall stack.  It
     holds the terms' other host forms too, each built on first use and then
     kept: ``union`` (:class:`_UnionTerms`, for the host splu) and ``plan``
     (a :class:`ShiftPlan`, for the chip factorization)."""
@@ -53,11 +59,28 @@ class _TermOps:
         self.csr = csr
         self.fv = fv
         self.nt = len(csr)
-        self.n = csr[0].shape[0]
-        self.A_all = sp.vstack(csr, format="csr")
+        self.n = n = csr[0].shape[0]
+        stack = sp.vstack(csr, format="csr")
         # terms collected from an aligned bank share the union pattern and
-        # carry explicit zeros (9 in 10 stored entries at waveguide size)
-        self.A_all.eliminate_zeros()
+        # carry explicit zeros (9 in 10 stored entries at waveguide size):
+        # dropped, so a term's support is the rows it really touches
+        stack.eliminate_zeros()
+        full = np.diff(stack.indptr).reshape(self.nt, n) > 0
+        by_support = {}
+        for t in range(self.nt):
+            by_support.setdefault(full[t].tobytes(), []).append(t)
+        self.groups = []
+        for terms in by_support.values():
+            rows = np.flatnonzero(full[terms[0]])
+            if rows.size:
+                terms = np.array(terms)
+                # |rows| empty rows on top: slot 0 of the group's product,
+                # which ``contract`` fills with the sum so far
+                self.groups.append((rows, terms, sp.vstack(
+                    [sp.csr_matrix((rows.size, n)),
+                     stack[(terms[:, None] * n + rows).ravel()]],
+                    format="csr")))
+        self.stack_rows = sum(r.size * t.size for r, t, _ in self.groups)
 
     def weights(self, lams, nder=1):
         """W[i, d, j] = f_i^{(d)}(lams[j]) — complex128 (nt, nder, k)."""
@@ -67,13 +90,32 @@ class _TermOps:
         return W
 
     def apply(self, Q):
-        """(nt, n, k) stack of per-term products A_i @ Q, one SpMM."""
-        return np.asarray(self.A_all @ Q).reshape(self.nt, self.n, -1)
+        """The per-term products A_i @ Q on their groups' rows: one SpMM a
+        group, -> a complex (1 + |t|, |r|, k) stack, slot 0 ``contract``'s
+        and the products of the group's terms after it."""
+        with trace.span("nt.refine.residual"):
+            trace.count("nt.refine.stack_rows", self.stack_rows)
+            trace.count("nt.refine.stack_rows_full", self.nt * self.n)
+            return [np.asarray(A @ Q, dtype=complex).reshape(
+                t.size + 1, r.size, -1) for r, t, A in self.groups]
 
-    @staticmethod
-    def contract(T, w):
-        """sum_i w[i, j] * T[i, :, j] -> (n, k)."""
-        return np.einsum("tnk,tk->nk", T, w)
+    def contract(self, stacks, w):
+        """sum_i w[i, j] * (A_i @ Q)[:, j] -> (n, k), from ``apply(Q)``.
+
+        Each group's einsum takes the sum so far of its rows in slot 0 at
+        weight 1, so every row adds its terms' products one at a time in
+        term order, as one tall stack of all terms would: the same bits
+        wherever no two groups that share a row interleave in term
+        order."""
+        with trace.span("nt.refine.residual"):
+            k = w.shape[1]
+            out = np.zeros((self.n, k), dtype=complex)
+            one = np.ones((1, k))
+            for (rows, terms, _), T in zip(self.groups, stacks):
+                T[0] = out[rows]
+                out[rows] = np.einsum("tnk,tk->nk", T,
+                                      np.concatenate([one, w[terms]]))
+            return out
 
     @functools.cached_property
     def union(self):
@@ -347,7 +389,7 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
                 if tol is not None and np.all(errs < tol):
                     break
                 with trace.span("nt.refine.sweep"):
-                    T = ops.apply(Q)                   # (nt, n, k), one SpMM
+                    T = ops.apply(Q)             # one SpMM a row-support group
                     W = ops.weights(lams, 2)
                     Mq = ops.contract(T, W[:, 0])
                     Mpq = ops.contract(T, W[:, 1])
