@@ -395,10 +395,13 @@ def _extract_ritz(carry, k_done, m, n, sigma, gamma):
 
 def _filtered_errs(lams, Q, ests, resnorm, neigs):
     """Exact residuals for the ``max(4 neigs, 16)`` most promising pairs by
-    Arnoldi estimate; the rest are inf (sort last, never converged)."""
+    Arnoldi estimate; the rest are inf (sort last, never converged).  The
+    pairs measured are counted under ``nt.scan.check.pairs``: at each peek
+    of the scan, or once at the end of a scan run without checks."""
     cap = max(4 * int(neigs), 16)
     errs = np.full(len(lams), np.inf)
     idx = np.argsort(ests)[:cap] if len(lams) > cap else range(len(lams))
+    trace.count("nt.scan.check.pairs", len(idx))
     for s in idx:
         errs[s] = resnorm(lams[s], Q[:, s])
     return errs

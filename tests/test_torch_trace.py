@@ -2,9 +2,10 @@
 nobody traces, nesting and self time, the spans in the profiler's trace,
 the spans the solvers record beside their ``info`` times, the counters of
 the refinement's factorizations and of the chip backend's shifts and host
-fallbacks, the scan's SMW correction, and the benchmark's readers of the
-waveguide cell's spans and counters.  This file imports no JAX; its ``cuda``
-case runs on the card with
+fallbacks, the scan's host peeks and the pairs they measure, the
+refinement's passes, the scan's SMW correction, and the benchmark's readers
+of the waveguide cell's spans and counters.  This file imports no JAX; its
+``cuda`` case runs on the card with
 
     python -m pytest --noconftest tests/test_torch_trace.py -m cuda -q
 """
@@ -247,6 +248,76 @@ def test_chip_backend_counts_its_shifts_and_host_fallbacks(monkeypatch,
         "host_fallback_shifts"] >= len(failing)
     assert counters["nt.refine.chip.shifts"] + counters[
         "nt.refine.chip.fallbacks"] == sum(stats.values())
+
+
+# maxit 25 at checks every 10 or 7: a short last chunk; 1e-14 is never met
+@pytest.mark.parametrize("maxit, every, tol", [(30, 10, 1e-8),
+                                               (25, 10, 1e-8),
+                                               (30, 7, 1e-14)])
+def test_scan_counts_its_peeks_and_the_pairs_they_measure(tiny_dep, maxit,
+                                                          every, tol):
+    from neptpu_torch.solvers.iar_real import _dep_host_resnorm
+
+    nep, kw = tiny_dep
+    resnorm = _dep_host_resnorm(nep)
+    measured = []
+
+    def errmeasure(lam, q):
+        measured.append(lam)
+        return resnorm(lam, q)
+
+    kw = dict(kw, maxit=maxit, check_error_every=every, tol=tol,
+              errmeasure=errmeasure)
+    with trace.collect() as col:
+        _, _, info = nt.iar_real(nep, **kw)
+    peeks = col.totals()["nt.scan.check"]["calls"]
+    assert peeks == -(-info["k_done"] // every)
+    assert col.counters()["nt.scan.check.pairs"] == len(measured) > 0
+
+
+def _counted_batches(monkeypatch):
+    """The shifts of each batched factorization of the chip backend."""
+    from neptpu_torch.ops import partitioned
+
+    real, sizes = partitioned.BatchedShiftSMW, []
+
+    def counted(mats, fv, sig, *args, **kwargs):
+        sizes.append(len(sig))
+        return real(mats, fv, sig, *args, **kwargs)
+
+    monkeypatch.setattr(partitioned, "BatchedShiftSMW", counted)
+    return sizes
+
+
+# chunks of two shifts, each met at its first pass; and one pair started
+# 1e-2 off, which one sweep a pass leaves above tol in its first pass and
+# in each straggler pass
+@pytest.mark.parametrize("case", ["chunked", "straggler"])
+def test_refinement_counts_its_passes(monkeypatch, case):
+    mats, fv, lams, Q = _small_gun_pairs()
+    k = len(lams)
+    kw = dict(nsweeps=3, tol=1e-9, ir=3, backend="chip", device=CPU)
+    if case == "chunked":
+        kw["max_batch"] = 2
+    else:
+        rng = np.random.default_rng(3)
+        lams, Q = lams.copy(), Q.copy()
+        lams[0] *= 1 + 1e-5
+        Q[:, 0] += 1e-2 * np.linalg.norm(Q[:, 0]) * rng.standard_normal(
+            len(Q)) / np.sqrt(len(Q))
+        kw["nsweeps"] = 1
+    sizes = _counted_batches(monkeypatch)
+    with trace.collect() as col:
+        _, _, errs = nt.newton_refine(mats, fv, lams, Q, **kw)
+    # a pass on the chip backend is one ``nt.refine.factor`` span
+    assert col.totals()["nt.refine.factor"]["calls"] == len(sizes)
+    if case == "chunked":
+        assert sizes == [2, 2] and (errs < 1e-9).all()
+    else:
+        # one chunk of every pair, then a pass of the straggler alone for
+        # each of the two passes a straggler gets
+        assert sizes == [k, 1, 1] and errs[0] >= 1e-9
+        assert (errs[1:] < 1e-9).all()
 
 
 # ``_small_gun_pairs`` refined with one sweep a pass towards an unreachable

@@ -19,6 +19,7 @@ import subprocess
 import sys
 
 import numpy as np
+import pytest
 import torch
 
 from torch_port_helpers import CPU
@@ -35,8 +36,8 @@ from portbench.harness import load_module  # noqa: E402
 BASE = os.path.join(REPO, "portbench")
 
 
-def config(**small):
-    with open(os.path.join(BASE, "configs", "wep.json")) as fh:
+def config(name="wep", **small):
+    with open(os.path.join(BASE, "configs", f"{name}.json")) as fh:
         cfg = json.load(fh)
     if small:
         nx, nz = small["nx"], small["nz"]
@@ -81,10 +82,12 @@ def test_small_waveguide_is_the_gallery_problem():
     assert max(gaps) <= 1e-12, gaps
 
 
-def test_full_size_waveguide_is_the_gallery_problem():
-    cfg = config()
+@pytest.mark.parametrize("name, n, terms", [("wep", 11655, 213),
+                                           ("wep_large", 13915, 233)])
+def test_full_size_waveguide_is_the_gallery_problem(name, n, terms):
+    cfg = config(name)
     assert cfg["gallery_args"][:2] == [cfg["nx"], cfg["nz"]]
-    assert cfg["n"] == 11655 and cfg["terms"] == 213
+    assert cfg["n"] == n and cfg["terms"] == terms == 3 + 2 * cfg["nz"]
     gaps = agreement(cfg, [-3.0 - 3.5j], seed=21)
     assert gaps[0] <= 1e-12, gaps
 
@@ -107,19 +110,20 @@ def test_square_roots_take_the_branch_with_nonnegative_imaginary_part():
 
 
 # A child process runs the harness twice on the CPU in a checkout holding a
-# 21 x 11 waveguide: the traffic of ``wep.refined`` at the published target,
-# but 40 scan steps (at this size the float32 scan holds 8 Ritz pairs at
-# 1e-5 there after 40 steps and loses some by 100), refined by the chip
-# backend on the CPU; then with one refined eigenvalue moved by 1e-3.
+# reduced waveguide of a configuration: the traffic of its cell at the
+# published target, refined by the chip backend on the CPU; then with one
+# refined eigenvalue moved by 1e-3.  At 21 x 11 the scan takes 40 steps: the
+# float32 scan holds 8 Ritz pairs at 1e-5 there after 40 steps and loses some
+# by 100.  At 25 x 21 the cell's 100 steps give 4 distinct pairs at 1e-9.
 CHILD = r"""
 import json, sys
-root = sys.argv[1]
+root, cell = sys.argv[1:3]
 sys.path.insert(0, root)
 import neptpu_torch
 from portbench.harness import run_cell
 
 out = {}
-out["sound"] = run_cell(root, "wep.tiny", 2**31 + 19, 0.2, 0, device="cpu")
+out["sound"] = run_cell(root, cell, 2**31 + 19, 0.2, 0, device="cpu")
 real = neptpu_torch.newton_refine
 
 def altered(*args, **kwargs):
@@ -129,48 +133,57 @@ def altered(*args, **kwargs):
     return lams, Q, errs
 
 neptpu_torch.newton_refine = altered
-out["altered"] = run_cell(root, "wep.tiny", 2**31 + 19, 0.2, 0,
-                          device="cpu")
+out["altered"] = run_cell(root, cell, 2**31 + 19, 0.2, 0, device="cpu")
 print(json.dumps(out))
 """
 
+# each configuration's reduced grid (nx, nz) and scan steps (None: the
+# traffic's own), with the cell whose traffic it takes
+SMALL = {"wep": ((21, 11), 40, "wep.refined"),
+         "wep_large": ((25, 21), None, "wep_large.refined")}
 
-def checkout(root):
+
+def checkout(root, name="wep"):
     """``root`` made a checkout: the benchmark, the port linked, and the
-    cell ``wep.tiny``: ``wep.refined``'s traffic, 40 scan steps, on a
-    21 x 11 waveguide."""
+    cell ``<name>.tiny``: the traffic of the configuration's cell, with its
+    scan steps as ``SMALL`` says, on its reduced waveguide."""
+    (nx, nz), maxit, of = SMALL[name]
+    tiny = f"{name}_tiny"
     shutil.copy(os.path.join(REPO, "BENCHMARK.json"), root)
     shutil.copytree(BASE, os.path.join(root, "portbench"),
                     ignore=shutil.ignore_patterns("__pycache__"))
     os.symlink(os.path.join(REPO, "neptpu_torch"),
                os.path.join(root, "neptpu_torch"))
     base = os.path.join(root, "portbench")
-    cfg = dict(config(nx=21, nz=11), name="wep_tiny", reference="wep",
+    cfg = dict(config(name, nx=nx, nz=nz), name=tiny, reference="wep",
                reduced=["nx", "nz"])
-    with open(os.path.join(base, "configs", "wep_tiny.json"), "w") as fh:
+    with open(os.path.join(base, "configs", f"{tiny}.json"), "w") as fh:
         json.dump(cfg, fh)
-    with open(os.path.join(base, "traffic", "wep_target_refined.json")) as fh:
-        mix = json.load(fh)
-    mix["scan"]["maxit"] = 40
-    with open(os.path.join(base, "traffic", "wep_tiny.json"), "w") as fh:
-        json.dump(mix, fh)
     with open(os.path.join(root, "BENCHMARK.json")) as fh:
         bench = json.load(fh)
-    cell = {c["name"]: c for c in bench["workloads"]}["wep.refined"]
-    bench["configs"].append({"name": "wep_tiny", "source": "test",
-                             "file": "portbench/configs/wep_tiny.json",
+    cell = {c["name"]: c for c in bench["workloads"]}[of]
+    with open(os.path.join(base, "traffic", f"{cell['traffic']}.json")) as fh:
+        mix = json.load(fh)
+    if maxit is not None:
+        mix["scan"]["maxit"] = maxit
+    with open(os.path.join(base, "traffic", f"{tiny}.json"), "w") as fh:
+        json.dump(mix, fh)
+    bench["configs"].append({"name": tiny, "source": "test",
+                             "file": f"portbench/configs/{tiny}.json",
                              "reduced": ["nx", "nz"], "why": "CPU test"})
-    bench["workloads"].append(dict(cell, name="wep.tiny", config="wep_tiny",
-                                   traffic="wep_tiny", why="CPU test"))
+    bench["workloads"].append(dict(cell, name=f"{name}.tiny", config=tiny,
+                                   traffic=tiny, why="CPU test"))
     with open(os.path.join(root, "BENCHMARK.json"), "w") as fh:
         json.dump(bench, fh)
     return str(root)
 
 
-def test_small_harness_run_is_judged_by_the_reference(tmp_path):
-    root = checkout(tmp_path)
-    run = subprocess.run([sys.executable, "-c", CHILD, root], cwd=root,
-                         capture_output=True, text=True, timeout=300)
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_small_harness_run_is_judged_by_the_reference(tmp_path, name):
+    root = checkout(tmp_path, name)
+    run = subprocess.run([sys.executable, "-c", CHILD, root, f"{name}.tiny"],
+                         cwd=root, capture_output=True, text=True,
+                         timeout=300)
     assert run.returncode == 0, run.stderr[-3000:]
     out = json.loads(run.stdout.strip().splitlines()[-1])
     rc, sound = out["sound"]
