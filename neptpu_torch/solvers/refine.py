@@ -17,6 +17,7 @@ the scan's own frozen factorization instead, with no new one.
 from __future__ import annotations
 
 import functools
+import weakref
 
 import numpy as np
 
@@ -127,6 +128,55 @@ class _TermOps:
 
         with trace.span("nt.refine.plan"):
             return ShiftPlan(self.csr, self.fv)
+
+
+_held = None   # (weak refs to the terms, their _TermOps) of the last call
+
+
+def _term_ops(mats, fv):
+    """The :class:`_TermOps` of these terms.
+
+    Where the terms are CSR, the forms are built on copies of them and held
+    while the caller's matrices live, and a later call reuses them only
+    where its terms are those matrices and functions one by one, with
+    arrays equal, exactly, in value and type, to the copies.  Terms in
+    another format are converted anew every call and so never held.  Any
+    call that does not reuse the held forms drops them."""
+    global _held
+    csr = [A.tocsr() for A in mats]
+    held = _held
+    if held is not None and _reuses(held, csr, fv):
+        trace.count("nt.refine.ops_held")
+        return held[1]
+    _held = held = None     # the old forms go before the new are built
+    trace.count("nt.refine.ops_built")
+    if any(A is not B for A, B in zip(mats, csr)):
+        return _TermOps(csr, fv)
+    ops = _TermOps([A.copy() for A in csr], list(fv))
+    _held = [weakref.ref(A, _let_go) for A in csr], ops
+    return ops
+
+
+def _reuses(held, csr, fv):
+    refs, ops = held
+    return (len(refs) == len(csr) and len(ops.fv) == len(fv)
+            and all(r() is A for r, A in zip(refs, csr))
+            and all(f is g for f, g in zip(ops.fv, fv))
+            and all(_equal(A, B) for A, B in zip(csr, ops.csr)))
+
+
+def _equal(A, B):
+    return A.shape == B.shape and all(
+        a.dtype == b.dtype and np.array_equal(a, b)
+        for a, b in ((A.data, B.data), (A.indices, B.indices),
+                     (A.indptr, B.indptr)))
+
+
+def _let_go(ref):
+    """A held term matrix is gone: the forms of its terms go with it."""
+    global _held
+    if _held is not None and any(r is ref for r in _held[0]):
+        _held = None
 
 
 def _refine_batch_limit(plan, p=8, budget_bytes=6.0e9):
@@ -293,7 +343,15 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
     shifts and refactored otherwise (the JAX package always refactors; the
     factors are the same).  Returns ``(lams, Q, errs)``, and the batch
     solver of the first pass as a fourth item with ``return_solver=True``
-    (None where the pairs went in chunks or there were none)."""
+    (None where the pairs went in chunks or there were none).
+
+    The terms' host forms (the row-support groups, the union pattern, the
+    ``ShiftPlan`` and its device form) are held across calls for the last
+    term list of CSR matrices, built on copies of them, while the matrices
+    live: a call reuses them only where ``mats`` and ``fv`` are the held
+    objects one by one and the matrices' arrays equal, exactly, the copies;
+    any other call builds them anew.  A passed ``plan`` serves its call
+    only."""
     with trace.span("nt.refine"):
         lams = np.array(lams, dtype=complex, copy=True)
         Q = np.array(Q, dtype=complex, copy=True)
@@ -305,13 +363,18 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
                 f"backend must be chip|host|auto, got {backend!r}")
         # ONE partition count for both the memory budget and the solver
         p = min(int(p), 8)
-        ops = _TermOps([A.tocsr() for A in mats], fv)
-        if plan is not None:
-            ops.plan = plan      # in place of the one built on first use
+        with trace.span("nt.refine.ops"):
+            ops = _term_ops(mats, fv)
+
+        def shift_plan():
+            # a passed plan serves this call only; the held one is built on
+            # first use
+            return ops.plan if plan is None else plan
+
         if backend == "auto":
             # the JAX package's crossover, not yet re-measured on the card;
             # below it the host whatever the plan says, so no plan is built
-            backend = ("chip" if 2 * ops.n > 2e5 and ops.plan.ok
+            backend = ("chip" if 2 * ops.n > 2e5 and shift_plan().ok
                        else "host")
         if backend == "host":
             # host sweeps are cheap (k SpMVs + triangular solves); weakly
@@ -353,7 +416,6 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
                             _host_shift_lus(ops.union, fv, sig_f), sig_f)
                 solve = bsolver.solve
             else:
-                plan = ops.plan if bsolver is None else None
                 with trace.span("nt.refine.factor"):
                     if bsolver is None:
                         # factor at OFFSET shifts: an eigenvalue-accurate
@@ -361,8 +423,8 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
                         # error, and the float32-seeded refinement diverges
                         # once kappa * eps_f32 > 1
                         bsolver = BatchedShiftSMW(
-                            mats, fv, sig_f, dtype=dtype, p=p, plan=plan,
-                            ir=ir, device=device)
+                            mats, fv, sig_f, dtype=dtype, p=p,
+                            plan=shift_plan(), ir=ir, device=device)
                         trace.count("nt.refine.factorizations", k)
                     # one probe solve a shift, a passed solver's too: a
                     # shift whose solve fails goes to a host splu
@@ -435,7 +497,7 @@ def newton_refine(mats, fv, lams, Q, *, nsweeps=2, tol=None,
         size = k
         if backend == "chip" and bsolver is None and not _second_pass:
             if max_batch is None:
-                lim = _refine_batch_limit(ops.plan, p=p)
+                lim = _refine_batch_limit(shift_plan(), p=p)
                 fits = [c for c in BATCH_SIZES if c <= lim]
                 max_batch = fits[-1] if fits else lim
             size = -(-k // -(-k // max_batch))
