@@ -33,6 +33,8 @@ TRACE_SOLVES = 3
 # an idle gap shorter than this is counted with the others of its kind,
 # not attributed to what the host was doing
 SHORT_GAP_US = 20.0
+# the entry contracts a traffic file may name under ``returns``
+RETURNS = ("info", "pairs")
 
 
 def load_json(path):
@@ -101,7 +103,16 @@ def _sync(torch, device):
 
 class Solver:
     """One request of the traffic: a scan at a shift, then, where the
-    traffic asks for it, clustering and Newton refinement."""
+    traffic asks for it, clustering and Newton refinement.
+
+    The traffic's ``returns`` names the entry's contract: ``"info"`` (the
+    default), the scans' ``(lams, Q, info)`` under ``return_info=True``,
+    whose ``info`` carries each pair's error and the scan's times; or
+    ``"pairs"``, a solver that returns ``(lams, V)`` and nothing else.  A
+    user of such a solver measures what it got: the request does so with the
+    cell's errmeasure once the solve's time is taken, so that the latency
+    holds the entry's own calls of the measure and not a second pass of
+    it."""
 
     def __init__(self, torch, problem, traffic, err, device, control=None):
         import neptpu_torch as nt
@@ -115,6 +126,18 @@ class Solver:
         self.k = int(traffic["k"])
         self.tol = float((self.refine or self.scan)["tol"])
         self.control = control
+        self.returns = traffic.get("returns", "info")
+        if self.returns not in RETURNS:
+            raise SystemExit(f"unknown entry contract {self.returns!r}; the "
+                             f"contracts are {list(RETURNS)}")
+        if self.refine and (self.returns == "pairs" or not problem.mats):
+            raise SystemExit(
+                "the traffic asks for refinement, which clusters by the "
+                "scan's own errors and refines the problem's term matrices; "
+                f"a {self.returns!r} entry on a {problem.kind} problem gives "
+                "it " + ("no errors" if problem.mats else "no terms"))
+        self.nep = (problems.rounded_mder(problem)
+                    if control == "rounded_mder" else problem.nep)
 
     def __call__(self, sigma, annotate=False):
         """Solve at ``sigma``; returns ``(answer, record)``."""
@@ -127,16 +150,21 @@ class Solver:
         if self.control == "bf16_factor":
             kw["lu_piv"] = problems.rounded_shift_solver(
                 self.problem, sigma, self.dtype, self.device, torch.bfloat16)
+        if self.returns == "info":
+            kw["return_info"] = True
         t0 = time.perf_counter()
         with span("solve"):
             with span("scan"):
-                lams, Q, info = self.entry(
-                    self.problem.nep, sigma=sigma, dtype=self.dtype,
-                    errmeasure=self.err, return_info=True, device=self.device,
-                    **kw)
-            lams = np.asarray(lams, dtype=complex)
-            Q = np.asarray(Q)
-            errs = np.asarray(info["errs"][: len(lams)], dtype=float)
+                out = self.entry(self.nep, sigma=sigma, dtype=self.dtype,
+                                 errmeasure=self.err, device=self.device, **kw)
+            if self.returns == "info":
+                lams, Q, info = out
+                lams = np.asarray(lams, dtype=complex)
+                Q = np.asarray(Q)
+                errs = np.asarray(info["errs"][: len(lams)], dtype=float)
+            else:
+                lams, Q = host_pairs(torch, *out)
+                info = errs = None
             t_refine = None
             if self.refine:
                 opts = dict(self.refine)
@@ -151,16 +179,31 @@ class Solver:
                 t_refine = time.perf_counter() - t1
             _sync(torch, self.device)
         latency = time.perf_counter() - t0
+        if errs is None:
+            errs = np.asarray(self.err.batch(lams, Q), dtype=float)
         distinct = len(measures.distinct_below_tol(lams, errs, self.tol))
         record = {"sigma": [float(np.real(sigma)), float(np.imag(sigma))],
                   "latency_s": latency,
-                  "t_factorize": float(info["t_factorize"]),
-                  "t_scan": float(info["t_scan"]),
-                  "t_check": float(info["t_check"]),
-                  "k_done": int(info["k_done"]),
+                  "t_factorize": scan_info(info, "t_factorize", float),
+                  "t_scan": scan_info(info, "t_scan", float),
+                  "t_check": scan_info(info, "t_check", float),
+                  "k_done": scan_info(info, "k_done", int),
                   "t_refine": t_refine, "returned": len(lams),
                   "distinct": distinct, "traced": bool(annotate)}
         return (lams, Q, errs), record
+
+
+def host_pairs(torch, lams, V):
+    """A ``"pairs"`` entry's answer on the host: the eigenvalues as a
+    complex128 vector and the vectors as a complex128 ``(n, p)`` array."""
+    if isinstance(V, torch.Tensor):
+        V = V.detach().to("cpu", torch.complex128).resolve_conj().numpy()
+    return np.asarray(lams, dtype=complex), np.asarray(V, dtype=complex)
+
+
+def scan_info(info, key, kind):
+    """``info[key]`` as ``kind``; None for an entry that returns no info."""
+    return None if info is None else kind(info[key])
 
 
 def judge(ref, answers, tol, k):
@@ -272,9 +315,10 @@ def _power_limit():
     return out.stdout.strip().splitlines()[0] if out.returncode == 0 else None
 
 
-# the control of the correctness check: the scan's shifted solver built
-# from M(sigma) rounded to bfloat16
-CONTROLS = ("bf16_factor",)
+# the controls of the correctness check: the scan's shifted solver built
+# from M(sigma) rounded to bfloat16; every matrix a protocol problem's Mder
+# returns rounded through the precision below its own
+CONTROLS = ("bf16_factor", "rounded_mder")
 
 
 def run_cell(root, workload, seed, seconds, trace, device="cuda",
@@ -285,7 +329,9 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda",
     process's start.  ``control``: run the program in the precision below
     the one the configuration states, for the control readings
     (``bf16_factor``: the scan's shifted solver built from M(sigma) rounded
-    to bfloat16); no cell's runs use it."""
+    to bfloat16; ``rounded_mder``, for a protocol problem: every matrix its
+    ``Mder`` returns rounded through the precision below its own); no cell's
+    runs use it."""
     if t_start is None:
         t_start = time.perf_counter()
 
@@ -340,8 +386,9 @@ def run_cell(root, workload, seed, seconds, trace, device="cuda",
             prof.stop()
         answers.append(answer)
         solves.append(rec)
+        k_done = "-" if rec["k_done"] is None else rec["k_done"]
         say(f"solve {len(solves) - 1}: sigma {rec['sigma']}, "
-            f"{rec['latency_s']:.4f} s, k_done {rec['k_done']}, "
+            f"{rec['latency_s']:.4f} s, k_done {k_done}, "
             f"{rec['distinct']} distinct of {rec['returned']}"
             + (" (traced)" if traced else ""))
     if trace and len(solves) < TRACE_SOLVES:

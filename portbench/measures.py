@@ -7,6 +7,7 @@ from __future__ import annotations
 import json
 
 import numpy as np
+import torch
 
 # published peaks of one NVIDIA H100 SXM at its 700 W limit (chip_smoke.py:250-252)
 PEAK_BYTES_PER_S = 3.35e12
@@ -17,9 +18,12 @@ def errmeasure(ref):
     """A user's ``(lam, q) -> backward error`` callable over the plain
     reference's own matrices, with the batched form under ``.batch`` that
     ``newton_refine`` looks for (chip_smoke.py:280-300, bench.py:123-147:
-    the same measure; the vector is normalised here)."""
+    the same measure; the vector is normalised here).  A vector on the card
+    is copied to the host first."""
 
     def err(lam, q):
+        if isinstance(q, torch.Tensor):
+            q = q.detach().cpu().resolve_conj()
         return float(ref.backward([lam], np.asarray(q)[:, None])[0])
 
     err.batch = ref.backward

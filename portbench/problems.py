@@ -10,6 +10,12 @@ user sweeping shifts would hold them.
 * ``dep``: a delay problem whose own term bank is rebuilt once in the scan's
   dtype (``benchmarks/time_to_tol.py``'s problem); the entry takes the
   ``DEP`` itself.
+* ``protocol``: the gallery problem as ``nep_gallery`` builds it, reached
+  only through the compute-function protocol (``Mder``, ``Mlincomb``): no
+  term bank, no term matrices, nothing prebuilt.  The entry takes the
+  problem itself; the refinement and the scan's control, which need terms
+  or a scan's shifted solver, do not apply: its control is
+  ``rounded_mder``.
 """
 from __future__ import annotations
 
@@ -26,6 +32,7 @@ class Problem:
     b1_shape: tuple          # (n, terms, diagonals) of the bank kernel B1 applies
     mats: list = field(default_factory=list)
     fv: list = field(default_factory=list)
+    kind: str = ""
 
 
 def build(cfg, device):
@@ -44,12 +51,15 @@ def build(cfg, device):
         mats, fv = collect_spmf_terms(nep)
         bank = make_mixed_bank(mats, dtype=dt, device=device)
         inner = bank.inner
-        return Problem(nep, tdt, {"bank": bank}, _shape(inner), mats, fv)
+        return Problem(nep, tdt, {"bank": bank}, _shape(inner), mats, fv,
+                       "spmf")
     if cfg["kind"] == "dep":
         bank = DiaTermBank.from_matrices(nep.bank.host_csr_terms(), dtype=dt,
                                          device=device)
         dep = nt.DEP(None, tauv=nep.tauv, bank=bank)
-        return Problem(dep, tdt, {}, _shape(bank))
+        return Problem(dep, tdt, {}, _shape(bank), kind="dep")
+    if cfg["kind"] == "protocol":
+        return Problem(nep, tdt, {}, None, kind="protocol")
     raise ValueError(f"unknown problem kind {cfg['kind']!r}")
 
 
@@ -70,6 +80,11 @@ def rounded_shift_solver(problem, sigma, dtype, device, round_to):
     precision.  The scan takes it as its ``lu_piv``."""
     import torch
 
+    if problem.kind == "protocol":
+        raise ValueError(
+            "the control rounds the scan's shifted solver, and a protocol "
+            "problem has no scan and no terms to round; its control is "
+            "rounded_mder")
     from neptpu_torch.ops.partitioned import build_spmf_shift_solver
     from neptpu_torch.solvers.iar_real import dep_shift_block_lu
     from neptpu_torch.solvers.spmf_real import spmf_shift_block_lu
@@ -94,3 +109,44 @@ def rounded_shift_solver(problem, sigma, dtype, device, round_to):
         device=device)
     return dep_shift_block_lu(nt.DEP(None, tauv=nep.tauv, bank=bank), sigma,
                               dtype=dtype, device=device)
+
+
+def rounded_mder(problem):
+    """For the correctness control of a ``protocol`` problem: the problem
+    with every matrix its ``Mder`` and ``Mder_dense`` return rounded through
+    the precision below its own (the real and imaginary parts of a
+    complex128 matrix through float32), so that the solver sees M(lambda)
+    known only to that precision.  Everything else is the problem's own."""
+    import copy
+
+    import torch
+
+    if problem.kind != "protocol":
+        raise ValueError(
+            "the control rounds what Mder returns, and the scans of a "
+            f"{problem.kind} problem reach M through its term bank; their "
+            "control is bf16_factor")
+
+    # the precision below each in which the parts of a matrix are held
+    lower = {torch.float64: torch.float32, torch.float32: torch.bfloat16}
+
+    def rounded(M):
+        if not isinstance(M, torch.Tensor) or M.layout != torch.strided:
+            M = M.to_dense()
+        parts = torch.view_as_real(M) if M.is_complex() else M
+        parts = parts.to(lower[parts.dtype]).to(parts.dtype)
+        return torch.view_as_complex(parts) if M.is_complex() else parts
+
+    base = type(problem.nep)
+
+    def rounding(name):
+        def method(self, lam, der=0):
+            return rounded(getattr(base, name)(self, lam, der))
+        return method
+
+    cls = type(f"Rounded{base.__name__}", (base,),
+               {name: rounding(name) for name in ("Mder", "Mder_dense")
+                if hasattr(base, name)})
+    nep = copy.copy(problem.nep)
+    nep.__class__ = cls
+    return nep

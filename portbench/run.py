@@ -8,7 +8,9 @@ object; the numbers that decide ``correct`` follow it as the last lines of
 standard error.  ``--control bf16_factor`` runs the program with the scan's
 shifted solver built from M(sigma) rounded to bfloat16, the precision below
 the configuration's float32, for the readings of the correctness control;
-no cell's runs use it.
+``--control rounded_mder`` does the same for a problem reached only through
+``Mder`` (the kind ``protocol``), with every matrix it returns rounded
+through the precision below its own; no cell's runs use either.
 """
 import time
 
